@@ -1,4 +1,4 @@
-"""fraytracer_tpu — a TPU-native differentiable SDF renderer.
+"""fraytracer_tpu — a differentiable SDF renderer for the GPU.
 
 A from-scratch JAX/XLA/Pallas framework replicating (and extending) the
 capabilities of the F# CPU sphere-tracer FrayTracer
@@ -7,8 +7,8 @@ capabilities of the F# CPU sphere-tracer FrayTracer
 sphere-traced rendering with Lambert shading and hard shadows, spectral
 ray tests with dispersive materials and Fresnel secondary rays — plus what
 the reference never had: exact AD normals, pixel gradients w.r.t. every
-scene parameter, multi-chip sharded rendering, and a fused Pallas march
-kernel.
+scene parameter, multi-device sharded rendering, and a Pallas march
+kernel for the GPU.
 
 Quick start::
 

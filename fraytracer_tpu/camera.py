@@ -20,14 +20,12 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
-
-from .types import Rays, normalize
+from .types import Rays, normalize, pytree_dataclass
 
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Pinhole camera frame (reference ``Camera`` record, Camera.fs:16-22):
     position + forward + up/right scaled by the near-plane half-size.

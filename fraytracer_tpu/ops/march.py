@@ -1,6 +1,6 @@
 """Sphere tracing (the hot loop) as a batched, masked JAX march.
 
-TPU-native replacement for the reference's tail-recursive per-ray trace
+Batched replacement for the reference's tail-recursive per-ray trace
 (``SdfForm.tryTrace``, SdfForm.fs:93-104): all rays march in lockstep inside
 one ``lax.while_loop``; per-lane ``active`` masks replace recursion/early
 return.  Termination semantics match the reference exactly:
@@ -36,89 +36,113 @@ from . import sdf
 Array = jax.Array
 
 
+def resolve_backend(backend: str, platform: str | None = None) -> str:
+    """The march implementation behind a ``MarchConfig.backend`` string.
+
+    ``"auto"`` is decided by the platform JAX computes on: ``"pallas"``
+    (the Triton-route kernel, ops/pallas/march_kernel.py) on ``gpu``,
+    ``"jnp"`` (the batched XLA while_loop) on ``cpu``; any other platform
+    raises rather than silently taking a slow path.  Explicit values pass
+    through: ``"jnp"``, ``"pallas"`` and ``"pallas_interpret"`` (the same
+    kernel in interpreter mode, for CPU tests)."""
+    if backend != "auto":
+        if backend not in ("jnp", "pallas", "pallas_interpret"):
+            raise ValueError(f"unknown march backend {backend!r}")
+        return backend
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "jnp"
+    raise ValueError(f"no march backend for platform {platform!r}")
+
+
+def uses_kernel(cfg: "MarchConfig") -> bool:
+    """True when ``cfg`` marches with the Pallas kernel (compiled or
+    interpreted) — the path that carries culling and the fused passes."""
+    return resolve_backend(cfg.backend).startswith("pallas")
+
+
+def interpret_kernel(cfg: "MarchConfig") -> bool:
+    return resolve_backend(cfg.backend) == "pallas_interpret"
+
+
+# Rays per block of the block-granular reorders (occlusion re-tiling,
+# material repair, wavefront compaction): one culling tile of the kernel.
+BLOCK = 1024
+
+
+def block_take(x: Array, idx: Array, block: int = BLOCK) -> Array:
+    """``x [N, ...]`` viewed as ``N // block`` blocks of rows; block ``i``
+    of the result is block ``idx[i]`` of ``x`` (a row gather, which XLA
+    runs at memory bandwidth on the GPU)."""
+    nb = x.shape[0] // block
+    rows = x.reshape((nb, block) + x.shape[1:])[idx]
+    return rows.reshape((-1,) + x.shape[1:])
+
+
 @dataclasses.dataclass(frozen=True, eq=True)
 class MarchConfig:
     """Static march configuration (jit cache key material).
 
     ``max_steps`` bounds the while_loop (the reference has no cap — its loop
-    is bounded only by the budget; the cap is a TPU safety net and in
-    practice never binds at default ``epsilon``).  ``bound_skip`` fast-
-    forwards rays to the scene's root bounding sphere before marching — the
-    TPU analog of the reference's boundary ray tests
-    (``SdfBoundary.fs:152-201``).  ``min_denom`` guards the implicit-diff
-    denominator at grazing hits.
+    is bounded only by the budget; the cap is a safety net and in practice
+    never binds at default ``epsilon``).  ``bound_skip`` fast-forwards rays
+    to the scene's root bounding sphere before marching — the analog of
+    the reference's boundary ray tests (``SdfBoundary.fs:152-201``).
+    ``min_denom`` guards the implicit-diff denominator at grazing hits.
+
+    The off-by-default knobs (``cull_early_out``, ``shadow_axial_sort``,
+    ``shadow_block_sort``, ``shadow_block_compact``, ``step_unroll``,
+    ``shadow_compact``) have not been timed on the GPU; each is to be
+    measured there and then made the default or removed (ROADMAP.md,
+    "Knobs that nothing turns on").
     """
 
     max_steps: int = 192
     bound_skip: bool = True
     min_denom: float = 0.05
-    # march backend: 'jnp' = batched XLA while_loop; 'pallas' = fused TPU
-    # kernel (ops/pallas/march_kernel.py).  'pallas_interpret' runs the
-    # kernel in interpreter mode (CPU correctness tests).
-    backend: str = "jnp"
-    # Per-tile cone culling (pallas backend only): large homogeneous union
+    # march backend, see resolve_backend: 'auto' picks the Pallas kernel on
+    # the GPU and the jnp march on the CPU
+    backend: str = "auto"
+    # Per-tile cone culling (kernel backends only): large homogeneous union
     # groups march against a per-ray-tile candidate list selected by a
-    # conservative cone-vs-bounding-sphere test — the TPU replacement for
-    # the reference's spatial-grid pruning (SdfBoundary.fs:225-282).
+    # conservative cone-vs-bounding-sphere test — the replacement for the
+    # reference's spatial-grid pruning (SdfBoundary.fs:225-282).
     cull: bool = True
-    # candidate slots per tile (primary/camera marches; measured max at
-    # 1024² on the 1000-torus scene: 60).  If any tile's conservative
-    # count exceeds its table, the whole batch falls back to the dense
-    # march via lax.cond — correct but slow, so size generously.
+    # candidate slots per tile (primary/camera marches).  If any tile's
+    # conservative count exceeds its table, the batch re-marches with
+    # full-group tables via lax.cond — correct but slow, so size
+    # generously.
     cull_m: int = 256
     # candidate slots for occlusion (shadow) marches.  The per-tile table
     # build (top_k + row gathers) scales with m, so size to measured
-    # counts, not the group: at the 1024²/1000-tori benchmark the true
-    # max conservative count is 385 (dir) / 345 (point) and m=512 saves
-    # ~5.6 ms/frame over 1024 (round-5 probe_shadow_m).  Overflow arms
-    # the host-side lax.cond dense fallback — correct, but ~25 ms per
-    # occlusion when taken (measured at m=256), so keep ~25% headroom
-    # above the largest observed count.
+    # counts with ~25% headroom: at the 1024²/1000-tori benchmark the
+    # largest conservative count is 385 (directional) / 345 (point).
     cull_m_shadow: int = 512
-    # Minimum same-kind group size worth cone-culling.  Round-5 measured
-    # at 1024²: a 100-torus scene renders 207 ms on the dense chunk sweep
-    # (old default 192 left it unculled) vs 19.2 ms culled at threshold
-    # 64 — windows pay for themselves far below the old cutoff; 32 ≈ 64.
-    # Below ~48 the dense scalar/chunk paths win (table prep per march
-    # outweighs the short window scans).
+    # Minimum same-kind group size worth cone-culling: below it the
+    # per-primitive dense loop is cheaper than building tables.
     cull_threshold: int = 48
-    # Over-relaxed sphere tracing (pallas backend): step by omega·d with a
-    # sound fallback — when the relaxed step leaves the union of the two
+    # Over-relaxed sphere tracing (kernel backends): step by omega·d with
+    # a sound fallback — when the relaxed step leaves the union of the two
     # safety spheres (step > d_prev + d), revert to the conservative
-    # landing point and continue.  1.0 disables.  Never skips a surface the
-    # conservative march would hit.
+    # landing point and continue.  1.0 disables.  Never skips a surface
+    # the conservative march would hit.
     relax_omega: float = 1.0
-    # Axial candidate-window clamp (pallas backend): primitives provably
+    # Axial candidate-window clamp (kernel backends): primitives provably
     # farther than this from every active ray point are skipped per step
     # and replaced by a per-lane lower-bound cap (the position-dependent
     # pruning analog of the reference grid's sorted lower bounds,
     # SdfBoundary.fs:266-282).  Effective clamp = max(this, 8·epsilon).
-    # Measured on v5e at the benchmark: 0.125 beats 0.25 beats 0.5
-    # (narrower windows outweigh the slightly shorter empty-space caps).
     cull_window_clamp: float = 0.125
-    # Fused surface pass (pallas backend): compute analytic normals and the
-    # CSG-aware material argmin inside the march kernel instead of a
-    # second dense pass over the scene.
+    # Fused surface pass (kernel backends): compute analytic normals and
+    # the CSG-aware material argmin in a kernel over the march's candidate
+    # tables instead of a second pass over the scene (point_eval).
     fuse_surface: bool = True
-    # Ray-tile height in sublanes (pallas backend); 0 = backend default
-    # (32 on TPU).  Smaller tiles have tighter cones (less origin spread →
-    # fewer candidates) at the cost of more grid steps.
-    tile_sub: int = 0
-    # Tile height for shadow/occlusion marches specifically; 0 = tile_sub.
-    # Shadow tiles' origins are 3-D surface points whose perpendicular
-    # spread (vs the light axis) inflates the candidacy margin — smaller
-    # shadow tiles cut that spread.  (Measured on v5e: smaller shadow
-    # tiles LOSE — per-tile prologue work dominates the cone gain.)
-    shadow_tile_sub: int = 0
     # Running-min early-out inside the candidate window scan (the
     # reference's sorted nearest-first stop, SdfBoundary.fs:266-268).
     # Exact either way (it only skips chunks that provably cannot change
-    # the group min).  Measured on v5e at the benchmark: OFF is faster —
-    # round 4 (per-chunk sync) by ~9%, round 5 (EO_STRIDE=2 amortized
-    # sync, march_kernel.EO_STRIDE) still by ~4.5% (41.9 vs 40.0 ms
-    # frame): at today's window widths (~29 candidates ≈ 3.6 chunks per
-    # step) there is simply not enough scan to cut.  Keep available for
-    # wider-window scenes.
+    # the group min); it pays only when windows are wide.
     cull_early_out: bool = False
     # Backward-pass candidate sizing (implicit-diff VJP, point_eval): the
     # gradient only needs the scene SDF's local argmin neighborhood at
@@ -129,56 +153,32 @@ class MarchConfig:
     bwd_cull_m: int = 48
     bwd_point_tile: int = 256
     # Row-granular shadow re-tiling: sort 128-ray rows of the occlusion
-    # batch by their axial position along the light axis before marching.
-    # Shadow-ray origins within a screen-block tile span the scene's depth
-    # along the light axis, so un-sorted tiles open their candidate
-    # windows over that whole span from step 0; sorted rows give tiles a
-    # narrow axial extent.  Rows with no active lane sort to the end,
-    # compacting the marching tiles as a side effect.  Measured on v5e:
-    # even ROW-granular (512-byte-slice) gathers lose 3× — XLA lowers
-    # every data-dependent reorder near-serially on this backend — so this
-    # defaults off like the per-lane variant (occlusion_compacted).
+    # batch by their axial position along the light axis before marching,
+    # so each tile sees a narrow axial origin range.  Rows with no active
+    # lane sort to the end.  A pure permutation (exact).
     shadow_axial_sort: bool = False
-    # Block-granular AXIAL re-tiling of occlusion batches ((8,128)-BLOCK
-    # granularity via the Pallas scalar-prefetch gather; directional
-    # lights only).  Measured on v5e at the benchmark: LOSES — sorting
-    # rays by axial position also makes their candidates axially
-    # coincident, so per-step windows WIDEN (59.9 → 93.1 mean) and the
-    # frame regresses 46.4 → 50.8 ms; screen-local tiles already bound
-    # candidate membership better via the sub-cone OR.  Kept as a knob
-    # because the permutation is exact and other scenes may differ.
+    # Block-granular axial re-tiling of occlusion batches (directional
+    # lights only).  Sorting rays by axial position also makes their
+    # candidates axially coincident, so per-step windows can widen;
+    # screen-local tiles already bound candidate membership well.  A pure
+    # permutation (exact).
     shadow_block_sort: bool = False
-    # Block-granular ACTIVITY compaction of occlusion batches: stable-sort
-    # (8,128) blocks by "has any active lane", so fully non-facing 32×32
-    # pixel blocks (after render.py's block permutation each 1024-lane
-    # block IS one screen tile) move to the tail where their kernel tiles
-    # exit after zero march iterations.  Order among active blocks is
-    # unchanged → tiles stay screen-local (cones/sub-cones unaffected in
-    # the common all-active case) and the converging point-light cone
-    # still applies.  Pure permutation → exact.  Measured on v5e at the
-    # benchmark: LOSES ~1.1 ms per occlusion — activity is clustered at
-    # TILE granularity already (639/1024 dead blocks collapse to almost
-    # the same dead-tile count), so the gathers buy nothing.  Off by
-    # default; useful for scenes with fragmented facing sets.
+    # Block-granular activity compaction of occlusion batches: stable-sort
+    # blocks by "has any active lane", so fully non-facing screen blocks
+    # move to the tail where their programs exit after zero march
+    # iterations.  Order among active blocks is unchanged → tiles stay
+    # screen-local.  A pure permutation (exact).
     shadow_block_compact: bool = False
-    # March steps executed per while_loop iteration (pallas backend).
-    # Measured on v5e at the benchmark: unrolling did NOT pay — per-step
-    # cost rose ~10-15% (bigger Mosaic program; the loop-condition check
-    # is not the bottleneck — cost decomposes as ~13 µs/tile fixed +
-    # ~0.8 µs/step + ~0.06 µs per window candidate).  Kept as a tuning
-    # knob; default 1.
+    # March steps executed per while_loop iteration (kernel backends).
     step_unroll: int = 1
-    # Report the per-tile summed candidate-window width in the march's
-    # ``steps`` output instead of per-lane eval counts (bench roofline /
-    # profiling instrumentation; forces a kernel variant recompile).
+    # Report the per-block summed candidate-window width in the march's
+    # ``steps`` output instead of per-lane eval counts (bench counters;
+    # forces a kernel variant recompile).
     debug_window_stats: bool = False
-    # Shadow-lane compaction (pallas backend): pack active (facing-hit)
+    # Shadow-lane compaction (kernel backends): pack active (facing-hit)
     # shadow rays to the front of the batch before the occlusion march so
-    # trailing all-inactive tiles exit their while_loop immediately.
-    # Measured on v5e at 1024²: lane-granular packing LOSES 3.5× — XLA TPU
-    # lowers the element-granularity scatter/gather of ~1M-lane
-    # permutations to near-serial loops — so this defaults off; see
-    # occlusion_compacted for the measurement.
+    # trailing all-inactive blocks exit their loop immediately; see
+    # occlusion_compacted.
     shadow_compact: bool = False
 
 
@@ -192,7 +192,7 @@ def bound_skip_start(scene: FlatScene, rays: Rays,
     root bound — no hit can occur past it, so callers clamp the travel
     budget to it (shadow rays with the reference's hardcoded budget of
     1000, SdfLight.fs:14, stop marching as soon as they escape the scene).
-    Inside-marching lanes (sign < 0) are left untouched.  The TPU analog
+    Inside-marching lanes (sign < 0) are left untouched.  The analog
     of the reference's boundary ray tests (SdfBoundary.Sphere.trace,
     SdfBoundary.fs:152-201).
     """
@@ -266,7 +266,7 @@ def _march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
 
 def _dispatch_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                   sign: Array | None) -> MarchResult:
-    if cfg.backend.startswith("pallas"):
+    if uses_kernel(cfg):
         from .pallas.march_kernel import pallas_march_raw
         batch = rays.batch_shape
         flat = jax.tree.map(
@@ -274,8 +274,7 @@ def _dispatch_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         sign_flat = None if sign is None else \
             jnp.broadcast_to(sign, batch).reshape(-1)
         raw_flat = pallas_march_raw(
-            scene, flat, cfg,
-            interpret=(cfg.backend == "pallas_interpret"),
+            scene, flat, cfg, interpret=interpret_kernel(cfg),
             sign=sign_flat)
         return jax.tree.map(lambda x: x.reshape(batch + x.shape[1:]),
                             raw_flat)
@@ -300,7 +299,7 @@ def _culled_scene_d(scene, rays, raw, cfg, batch):
     stays differentiable w.r.t. both scene and query points."""
     sg = jax.lax.stop_gradient
     x0 = sg(rays.origin) + sg(raw.t)[..., None] * sg(rays.direction)
-    if cfg.cull and cfg.backend.startswith("pallas"):
+    if cfg.cull and uses_kernel(cfg):
         from .point_eval import build_culled_eval, dense_dist_tiled
         built = build_culled_eval(scene, x0.reshape(-1, 3),
                                   sg(raw.hit).reshape(-1),
@@ -363,17 +362,17 @@ def _leaf_scene_d(scene: FlatScene, code: Array):
     return scene_d
 
 
-_BWD_TILE = 4096   # lanes per one-hot leaf-select tile (= kernel ray tile)
-_BWD_M = 64        # distinct winning leaves per tile (benchmark max: ≤60)
+_BWD_TILE = 4096   # lanes per one-hot leaf-select tile
+_BWD_M = 64        # distinct winning leaves per tile
 
 
 def _tiled_leaf_select(code: Array):
     """Per-tile distinct-winner table + one-hot selector for the leaf-local
-    backward (round 5): XLA lowers the per-lane ``params[slot]`` gather
-    (and its scatter-add transpose) near-serially on TPU (~4.3 + 8.2 ms at
-    1M lanes), while an MXU one-hot select over the tile's ≤ _BWD_M
-    distinct winners runs at matmul speed (measured: t-VJP 27.7 → 16.1 ms,
-    normal-VJP 49.2 → 28.4 ms, gradients exact at HIGHEST precision).
+    backward: instead of a per-lane ``params[slot]`` gather (and its
+    scatter-add transpose over every lane), a one-hot matrix product
+    selects each lane's parameters from the tile's ≤ _BWD_M distinct
+    winners, and the scene gradient lands with one small scatter per tile
+    table (gradients exact at HIGHEST precision).
 
     Returns ``(slot, sgn, uniq [G, M], onehot [G, T, M], ok)`` or None
     when the batch doesn't tile.  ``ok`` (traced bool) is the exactness
@@ -395,10 +394,9 @@ def _tiled_leaf_select(code: Array):
     uniq = jnp.sort(keys, axis=1)[:, :_BWD_M]
     n_uniq = jnp.sum((keys < 2 ** 30).astype(jnp.int32), axis=1)
     ok = jnp.max(n_uniq) <= _BWD_M
-    # one broadcast compare builds the selector: searchsorted +
-    # take_along_axis lowered to per-element binary-search gathers and
-    # cost ~70 ms at 1M lanes (measured) — the compare fuses to ~2 ms.
-    # Pad entries (2^30) never equal a slot; miss lanes (slot -1) match
+    # one broadcast compare builds the selector (it fuses; searchsorted +
+    # take_along_axis would be per-element binary-search gathers).  Pad
+    # entries (2^30) never equal a slot; miss lanes (slot -1) match
     # nothing → an all-zero row (zero distance, zero gradient, masked by
     # hit downstream).
     oh = (s2[:, :, None] == uniq[:, None, :]).astype(jnp.float32)
@@ -410,11 +408,10 @@ def _surf_bwd_tail_tiled(cfg, scene, rays, signv, raw, sel, ct_t, ct_n):
     t cotangent (implicit diff) and the normal cotangent (differentiable
     recompute) pull through ONE ``jax.vjp`` whose only scene-dependent
     inputs are the per-kind ``[G, M, P]`` winner tables — the per-lane
-    param selection is a single MXU einsum fan-out, its cotangents sum
-    once, and the scene gradient lands with one small ``[G·M]``-row
-    scatter per kind (vs per-1M-lane gather/scatter chains, which XLA
-    lowers near-serially on TPU).  Gradients equal the per-lane path's
-    (parity test in tests/test_grad.py)."""
+    param selection is a single einsum fan-out, its cotangents sum once,
+    and the scene gradient lands with one small ``[G·M]``-row scatter per
+    kind instead of per-lane gather/scatter chains.  Gradients equal the
+    per-lane path's (parity test in tests/test_grad.py)."""
     from .pallas.march_kernel import _GEN_FNS
     sg = jax.lax.stop_gradient
     slot, sgn, uniq, oh, _ok = sel
@@ -627,15 +624,12 @@ def march_occlusion(scene: FlatScene, rays: Rays,
     sg = jax.lax.stop_gradient
     scene, rays = sg(scene), sg(rays)
     sign = None if sign is None else sg(sign)
-    if cfg.backend.startswith("pallas"):
+    if uses_kernel(cfg):
         from .pallas.march_kernel import pallas_march_raw
         # shadow tiles can have near-omnidirectional cones (point lights):
-        # run with the shadow-sized candidate table so overflow is
-        # impossible (no dense-fallback cond emitted); optionally with the
-        # shadow-specific tile height
+        # run with the shadow-sized candidate table
         cfg = dataclasses.replace(
-            cfg, cull_m=max(cfg.cull_m, cfg.cull_m_shadow),
-            tile_sub=cfg.shadow_tile_sub or cfg.tile_sub)
+            cfg, cull_m=max(cfg.cull_m, cfg.cull_m_shadow))
         batch = rays.batch_shape
         flat = jax.tree.map(
             lambda x: x.reshape((-1,) + x.shape[len(batch):]), rays)
@@ -643,8 +637,7 @@ def march_occlusion(scene: FlatScene, rays: Rays,
             jnp.broadcast_to(sign, batch).reshape(-1)
         n = flat.origin.shape[0]
         LANE = 128
-        from .pallas.gather import BLOCK, flat_block_gather
-        interp = cfg.backend == "pallas_interpret"
+        interp = interpret_kernel(cfg)
         bsort = (cfg.shadow_block_sort and axial_key is not None
                  and cone_apex is None and n % BLOCK == 0
                  and n // BLOCK > 1)
@@ -664,22 +657,13 @@ def march_occlusion(scene: FlatScene, rays: Rays,
             perm = jnp.argsort(bkey, stable=True).astype(jnp.int32)
             inv = jnp.argsort(perm).astype(jnp.int32)
 
-            def bpermute(x):
-                if x.dtype == jnp.bool_:
-                    return flat_block_gather(
-                        x.astype(jnp.int32), perm, nb,
-                        interpret=interp).astype(jnp.bool_)
-                return flat_block_gather(x, perm, nb, interpret=interp)
-
-            flat = jax.tree.map(bpermute, flat)
+            flat = jax.tree.map(lambda x: block_take(x, perm), flat)
             if sign_flat is not None:
-                sign_flat = bpermute(sign_flat)
+                sign_flat = block_take(sign_flat, perm)
             hit = pallas_march_raw(
                 scene, flat, cfg, interpret=interp,
                 sign=sign_flat, occlusion=True, cone_apex=cone_apex)
-            hit = flat_block_gather(hit.astype(jnp.int32), inv, nb,
-                                    interpret=interp) > 0
-            return hit.reshape(batch)
+            return block_take(hit, inv).reshape(batch)
         sort = (cfg.shadow_axial_sort and axial_key is not None
                 and n % LANE == 0 and n // LANE > 1)
         if sort:
@@ -701,8 +685,7 @@ def march_occlusion(scene: FlatScene, rays: Rays,
             if sign_flat is not None:
                 sign_flat = permute(sign_flat)
         hit = pallas_march_raw(
-            scene, flat, cfg,
-            interpret=(cfg.backend == "pallas_interpret"),
+            scene, flat, cfg, interpret=interp,
             sign=sign_flat, occlusion=True, cone_apex=cone_apex)
         if sort:
             hit = hit.reshape(rows, LANE)[inv].reshape(n)
@@ -715,7 +698,7 @@ def march_occlusion(scene: FlatScene, rays: Rays,
 # ---------------------------------------------------------------------------
 
 def _surf_raw(scene: FlatScene, rays: Rays, sign: Array, cfg: MarchConfig):
-    """Non-differentiable fused march+surface via the Pallas kernel.
+    """Non-differentiable fused march+surface via the Pallas kernels.
     Returns (MarchResult, normal [..., 3], material [...], leaf code [...])
     — the signed winning-leaf code feeds the leaf-local backward."""
     from .pallas.march_kernel import pallas_march_raw
@@ -725,7 +708,7 @@ def _surf_raw(scene: FlatScene, rays: Rays, sign: Array, cfg: MarchConfig):
     sign_flat = None if sign.ndim == 0 else \
         jnp.broadcast_to(sign, batch).reshape(-1)
     res, aux, midx, code = pallas_march_raw(
-        scene, flat, cfg, interpret=(cfg.backend == "pallas_interpret"),
+        scene, flat, cfg, interpret=interpret_kernel(cfg),
         want_surface=True, sign=sign_flat)
     res = jax.tree.map(lambda x: x.reshape(batch + x.shape[1:]), res)
     # aux is the unit normal [N, 3] in both surface modes (slot mode
@@ -781,7 +764,7 @@ def _march_surf_bwd(cfg, residuals, ct):
     where t(scene) is the same implicit reparameterization — so gradients
     are identical to the unfused (march → point_eval normal) chain without
     re-running the kernel.  For min/max-only CSG the local scene distance
-    is the kernel-reported winning leaf — selected per lane by the MXU
+    is the kernel-reported winning leaf — selected per lane by the
     one-hot tile tables (``_surf_bwd_tail_tiled``) when the batch tiles and
     every tile's distinct winners fit the table (certified by ``ok``,
     checked at runtime via lax.cond), else the per-lane row read
@@ -837,15 +820,14 @@ def march_surface(scene: FlatScene, rays: Rays,
     exact gradient instead of 4-tap FD; the *outward* SDF gradient even on
     sign=-1 inside-marching lanes — callers orient it) and the CSG-aware
     winning material (argmin over material-visible primitives,
-    SdfObject.fs:26-64; -1 on miss).  On the Pallas backend with
-    ``cfg.fuse_surface`` this is a single fused kernel; ``t`` and
-    ``normal`` stay differentiable via a custom VJP.  Normals come from
-    the kernel in both surface modes (slot mode recovers the winning
-    leaf's gradient in-kernel with a masked-cotangent sweep — a host-side
-    per-ray parameter gather would serialize on TPU).  Other backends
-    fall back to march + dense evaluation.
+    SdfObject.fs:26-64; -1 on miss).  On the kernel backends with
+    ``cfg.fuse_surface`` the surface pass is a second kernel over the
+    march's candidate tables; ``t`` and ``normal`` stay differentiable via
+    a custom VJP.  Normals come from the kernel in both surface modes
+    (slot mode recovers the winning leaf's gradient in-kernel with a
+    masked-cotangent sweep).  Otherwise: march + dense evaluation.
     """
-    if cfg.backend.startswith("pallas") and cfg.fuse_surface:
+    if uses_kernel(cfg) and cfg.fuse_surface:
         sign_arg = jnp.float32(0.0) if sign is None else sign
         return _march_surf_cvjp(scene, rays, sign_arg, cfg)[:3]
     res = march(scene, rays, cfg, sign=sign)

@@ -1,117 +1,93 @@
-"""Fused Pallas TPU sphere-march kernel (v2: axial candidate windows).
+"""Fused Pallas sphere-march kernel for the GPU (Triton route).
 
 SURVEY.md §7 stage 3: the hot loop — (SDF eval over primitives → CSG
-combine → masked step) iterated until every ray in the tile converges —
-fused into one kernel with all state resident in VMEM.
+combine → masked step) iterated until every ray of a block converges —
+fused into one kernel whose march state lives in registers.
 
-Architecture (v2 — the position-dependent pruning round):
+Architecture:
 
-* ray tiles of 1024 rays; each ray coordinate is one (8, 128) f32 vreg
-  (structure-of-arrays), so per-candidate math runs at full lane density;
-* large homogeneous union groups are pruned per tile by a conservative
-  cone-vs-bounding-sphere test (the TPU analog of the reference's uniform
+* one Triton program marches a 1-D block of ``BLOCK_RAYS`` rays and runs
+  the whole step loop itself; the block exits as soon as its last lane
+  terminates;
+* large homogeneous union groups are pruned per culling tile of
+  ``RAY_TILE`` rays (several programs share one tile) by a conservative
+  cone-vs-bounding-sphere test (the analog of the reference's uniform
   grid, SdfBoundary.fs:225-282), and the surviving candidates are sorted
-  by their position along the tile's cone axis;
+  by their position along the tile's cone axis — this candidate prep is
+  plain ``jnp`` (``_tile_cones``, ``_cand_mask``, ``_cone_candidates``);
 * **each march step evaluates only an axial window of that list**: from
-  the tile's live t-range the kernel derives, per step, which candidates
-  can possibly be within ``window_clamp`` of any active ray point —
+  the block's live t-range the kernel derives, per step, which candidate
+  chunks can possibly be within ``window_clamp`` of any active ray point —
   everything provably behind or ahead is skipped, and the skipped mass
   contributes a per-lane lower-bound cap ``min(AH - t, t·cosθ - BH)`` so
   steps through empty space stay long.  This is the reference grid's
   "sorted nearest-first with precomputed lower bounds" idea
   (SdfBoundary.fs:266-282) re-expressed along the ray axis;
-* candidates are evaluated one per loop iteration as **scalar-broadcast
-  math over the whole (8, 128) ray vreg** — per-step cost is proportional
-  to the live window (typically 2-15 primitives), not to a padded
-  candidate capacity;
-* small non-culled groups (the CSG scene's bounding spheres) evaluate the
-  same scalar-broadcast way; large non-culled groups fall back to chunked
-  [8, 128, C] sweeps;
+* window candidates evaluate ``CAND_UNROLL`` at a time as one
+  ``[CAND_UNROLL, BLOCK_RAYS]`` block, each program loading its own tile's
+  candidate rows and window keys from device memory;
+* primitives outside culled groups (the CSG scene's bounding spheres)
+  evaluate one at a time with broadcast scalar parameters;
 * an optional fused **surface pass** runs once after the march: analytic
   normals (in-kernel AD of the same candidate evaluation) and the
   CSG-aware winning material (argmin over material-visible primitives,
-  SdfObject.fs:26-64) — eliminating the separate dense normal/material
-  stages.
+  SdfObject.fs:26-64).
 
 The kernel is generated per scene *structure* (plan + kind layout — static,
 cached); parameters stay runtime arrays, so scene edits and gradients don't
-recompile.
+recompile.  Every block dimension is a power of two, as the Triton route
+requires; tables with other widths are read by index, never as a block.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, List, NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ...scene.flatten import FlatScene, Plan, PARAM_WIDTH, visible_materials
-from ...types import MarchResult, Rays
+from ...types import MarchResult, Rays, dot, norm, normalize
 from ..march import MarchConfig, bound_skip_start
 
 Array = jax.Array
 
-import os as _os
-
-# ray sublanes per kernel instance: taller tiles amortize the per-step
-# scalar bookkeeping (window reductions, loop control) over more rays at
-# the cost of slightly more divergence (tile runs to the slowest lane).
-# Measured on v5e at 1024²: 32 sublanes ≈ 1.3-1.7× over 8 on every march
-# stage.  Interpret-mode (CPU tests) keeps 8 — small batches pad to one
-# tile and interpret cost scales with lanes.
-RAY_LANE = 128     # ray lanes
-
-
-def ray_sub(interpret: bool = False) -> int:
-    """Ray-tile height (sublanes): FT_RAY_SUB env override, else 32 on
-    real TPU, 8 under interpret mode or non-TPU backends (small batches
-    pad to one tile and interpret cost scales with lanes)."""
-    env = _os.environ.get("FT_RAY_SUB")
-    if env:
-        return int(env)
-    if interpret:
-        return 8
-    import jax as _jax
-    return 32 if _jax.default_backend() == "tpu" else 8
-
-
-def ray_tile(interpret: bool = False) -> int:
-    return ray_sub(interpret) * RAY_LANE
-
-
-# interpret-mode (CPU) tile shape — the fixed reference point for tests
-# and host tools that reason about per-tile statistics
-RAY_SUB = 8
-RAY_TILE = RAY_SUB * RAY_LANE
-PRIM_CHUNK = 128   # primitive lanes per chunked-sweep inner step
-DENSE_SCALAR_MAX = 24  # dense prims at or below this count unroll as scalars
-
-# candidates evaluated per window-loop iteration as one [CAND_UNROLL,
-# RAY_SUB, 128] vector block (candidate-major, full lane utilization).
-# Env-overridable for perf experiments (tools/probe_*).
-CAND_UNROLL = int(_os.environ.get("FT_CAND_UNROLL", "8"))
-# A/B experiment: per-candidate scalar-broadcast loop (the v2/v3 inner
-# loop) instead of the vectorized candidate block
-SCALAR_CAND = bool(int(_os.environ.get("FT_SCALAR_CAND", "0")))
-# disable the running-min early-out (A/B experiments)
-NO_EARLYOUT = bool(int(_os.environ.get("FT_NO_EARLYOUT", "0")))
-# chunks evaluated per early-out while iteration (sync amortization —
-# VERDICT r4 next-#1c); 1 = the round-4 per-chunk check
-EO_STRIDE = int(_os.environ.get("FT_EO_STRIDE", "2"))
-# dev switch (tools/probe_*, bench roofline): report the summed per-step
-# window width in the steps output instead of the iteration count; also
-# reachable per-call via MarchConfig.debug_window_stats
-DEBUG_WINDOW_STATS = bool(int(_os.environ.get("FT_WINDOW_STATS", "0")))
+# Rays per culling tile: one candidate table (and one cone) per tile.  The
+# render orders pixels in square screen blocks of this many rays
+# (render._auto_block) so a tile's ray cone stays narrow.
+RAY_TILE = 1024
+# Rays per Triton program (a power of two dividing RAY_TILE) and the warps
+# that run it: one warp per 32-ray program, whose candidate windows span
+# only its own rays (the fastest shape of the tools/kernel_ab.py sweep on
+# an H100; 256-ray culling tiles lost).  Interpret mode (CPU tests) runs
+# one program per culling tile instead: the interpreter's cost grows with
+# the number of programs.
+BLOCK_RAYS = 32
+NUM_WARPS = 1
+# Candidates evaluated per window-loop iteration as one [CAND_UNROLL,
+# BLOCK_RAYS] block; the windows are kept at this chunk granularity.
+CAND_UNROLL = 8
+# Chunks evaluated per early-out test when ``cull_early_out`` is on.
+EO_STRIDE = 2
+# Runs of at most this many non-culled primitives unroll at trace time;
+# longer runs loop over rows.
+UNROLL_RUN = 8
 _BIG = 3.0e38
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 # ---------------------------------------------------------------------------
 # Generic per-kind distance math.  Written once over an accessor ``g(j)``
-# that yields the j-th parameter as either a scalar (candidate loop) or a
-# [1, 1, Kc] column (chunked sweeps); rays are (8, 128) vregs (px, py, pz).
+# that yields the j-th parameter as either a scalar (one primitive) or a
+# [CAND_UNROLL, 1] column (a candidate chunk); the ray coordinates
+# (px, py, pz) broadcast against it.
 # Same semantics as ops.sdf (reference formulas cited there).
 # ---------------------------------------------------------------------------
 
@@ -236,51 +212,12 @@ _GEN_FNS = {
 }
 
 
-def _soa_fn(kind):
-    """Chunked evaluator: params [Kc, P] + (8,128,1) coords → [8,128,Kc]."""
-    fn = _GEN_FNS[kind]
-
-    def soa(params, px3, py3, pz3):
-        return fn(lambda j: params[:, j].reshape(1, 1, -1), px3, py3, pz3)
-    return soa
-
-
-def _scalar_fn(kind, prepped):
-    """Scalar-broadcast evaluator: tuple of scalars + (8,128) coords →
-    (8,128).  ``prepped`` rows come from :func:`_prep_rows` (e.g. torus
-    axes pre-normalized host-side)."""
-    fn = _GEN_FNS[kind]
-    if kind == "torus":
-        return lambda s, px, py, pz: fn(lambda j: s[j], px, py, pz,
-                                        unit_axis=prepped)
-    return lambda s, px, py, pz: fn(lambda j: s[j], px, py, pz)
-
-
-def _vec_fn(kind, prepped):
-    """Vectorized candidate-block evaluator: ``blk [CK, >=P]`` (one table
-    chunk, candidates on the major dim) + (S, 128) ray coords →
-    [CK, S, 128] distances.  Candidate parameters broadcast as [CK, 1, 1]
-    columns against [1, S, 128] rays — full lane utilization, no scalar
-    loads in the hot loop (the v2/v3 per-candidate SMEM scalar reads were
-    ~10x the eval math)."""
-    fn = _GEN_FNS[kind]
-
-    def vec(blk, px, py, pz):
-        g = lambda j: blk[:, j][:, None, None]
-        px3, py3, pz3 = px[None], py[None], pz[None]
-        if kind == "torus":
-            return fn(g, px3, py3, pz3, unit_axis=prepped)
-        return fn(g, px3, py3, pz3)
-    return vec
-
-
 def _prep_rows(kind: str, params: Array) -> Array:
     """Host-side candidate-row preprocessing: fold per-step invariants into
     the gathered parameter table (torus: normalize the axis so the kernel
     skips the per-step rsqrt)."""
     if kind == "torus":
-        n = params[:, 3:6]
-        n = n / jnp.sqrt(jnp.sum(n * n, axis=-1, keepdims=True) + 1e-20)
+        n = normalize(params[:, 3:6])
         return jnp.concatenate([params[:, 0:3], n, params[:, 6:]], axis=-1)
     return params
 
@@ -455,8 +392,8 @@ def _tile_cones(origin: Array, direction: Array, t_lo: Array, t_hi: Array,
     axis = jnp.sum(d * act[..., None], axis=1)
     if conv_apex is not None:
         axis = -axis            # point from the light back toward origins
-    norm = jnp.linalg.norm(axis, axis=-1, keepdims=True)
-    axis = jnp.where(norm > 1e-12, axis / jnp.maximum(norm, 1e-12),
+    alen = norm(axis, 0.0)[:, None]
+    axis = jnp.where(alen > 1e-12, axis / jnp.maximum(alen, 1e-12),
                      jnp.array([0.0, 0.0, 1.0]))
     # lateral slack: only the component of the origin spread PERPENDICULAR
     # to the cone axis widens the reachable set laterally — the parallel
@@ -464,10 +401,10 @@ def _tile_cones(origin: Array, direction: Array, t_lo: Array, t_hi: Array,
     # the full 3-D spread here made shadow tiles spanning depth along the
     # light direction inflate every candidate radius by scene scale.
     o_rel = o - apex[:, None, :]
-    o_par = jnp.sum(o_rel * axis[:, None, :], axis=-1)
-    rho2 = jnp.maximum(jnp.sum(o_rel * o_rel, axis=-1) - o_par * o_par, 0.0)
+    o_par = dot(o_rel, axis[:, None, :])
+    rho2 = jnp.maximum(dot(o_rel, o_rel) - o_par * o_par, 0.0)
     rho = jnp.sqrt(jnp.max(jnp.where(act > 0.0, rho2, 0.0), axis=1))
-    cosd = jnp.sum(d * axis[:, None, :], axis=-1)
+    cosd = dot(d, axis[:, None, :])
     cos_min = jnp.min(jnp.where(act > 0.0, cosd, 1.0), axis=1)
     # cone-width cosine: clipped away from 0 (the sin/cos split below needs
     # it); axial-projection cosine: UNCLIPPED below zero — a lane with
@@ -478,7 +415,7 @@ def _tile_cones(origin: Array, direction: Array, t_lo: Array, t_hi: Array,
     # bound, per-step behind-skip, cap) are sound for negative cos_lo.
     cos_half = jnp.clip(cos_min, 1e-3, 1.0)
     cos_lo = jnp.minimum(cos_min, 1.0)
-    o_off = jnp.sum((o - apex[:, None, :]) * axis[:, None, :], axis=-1)
+    o_off = dot(o - apex[:, None, :], axis[:, None, :])
     o_off_lo = jnp.min(jnp.where(act > 0.0, o_off, _BIG), axis=1)
     o_off_hi = jnp.max(jnp.where(act > 0.0, o_off, -_BIG), axis=1)
     o_off_lo = jnp.where(any_active, o_off_lo, 0.0)
@@ -557,8 +494,8 @@ def _cand_mask(bounds: Array, cones: TileCones,
     c = bounds[None, :, 0:3]
     r = bounds[None, :, 3] + cones.margin[:, None]
     v = c - cones.apex[:, None, :]
-    a = jnp.sum(v * cones.axis[:, None, :], axis=-1)
-    v2 = jnp.sum(v * v, axis=-1)
+    a = dot(v, cones.axis[:, None, :])
+    v2 = dot(v, v)
     p = jnp.sqrt(jnp.maximum(v2 - a * a, 0.0))
     near = v2 <= r * r
     sin_half = jnp.sqrt(jnp.maximum(1.0 - cones.cos_half ** 2, 0.0))
@@ -614,8 +551,8 @@ def _cone_candidates(bounds: Array, cones: TileCones,
     r_act = bounds[None, :, 3]                   # [1,Kg]
     r = r_act + cones.margin[:, None]            # [G,Kg] inflated
     v = c - cones.apex[:, None, :]
-    a = jnp.sum(v * cones.axis[:, None, :], axis=-1)   # [G,Kg]
-    v2 = jnp.sum(v * v, axis=-1)
+    a = dot(v, cones.axis[:, None, :])   # [G,Kg]
+    v2 = dot(v, v)
     p = jnp.sqrt(jnp.maximum(v2 - a * a, 0.0))
     if cand is None:
         cand = _cand_mask(bounds, cones, converging)
@@ -638,7 +575,16 @@ def _cone_candidates(bounds: Array, cones: TileCones,
 # Kernel builder
 # ---------------------------------------------------------------------------
 
-def _pair_window(keys_ref, ca, clamp, t, oa, lane_mask, chunks: int):
+class _Pair(NamedTuple):
+    """One culled pair's per-tile tables (kernel refs)."""
+
+    cand: object   # [G, P+2, M]: parameter rows, then material, then slot
+    keys: object   # [G, 2, NCH]: per-chunk far (lo_c) / near (hi_c) keys
+    misc: object   # [G, 4]: count, cos_lo, march clamp, surface margin
+    hsuf: object   # [G, NCH]: per-chunk suffix-min of the near keys
+
+
+def _pair_window(pr: _Pair, tile, nch: int, ca, clamp, t, oa, lane_mask):
     """Per-step axial candidate window for one culled pair, at CAND_UNROLL
     chunk granularity.
 
@@ -652,12 +598,11 @@ def _pair_window(keys_ref, ca, clamp, t, oa, lane_mask, chunks: int):
         plo = min over active lanes of p_ax
         phi = max over active lanes of p_ax
 
-    ``keys_ref [1, 2, C]`` holds per-chunk extremes of the candidate
-    axial keys: row 0 = max over the chunk of (a + r) = ``lo_c``, row 1 =
-    min over the chunk of (a − r) = ``hi_c`` (evaluation is chunk-granular
-    anyway, so chunk-level windows lose nothing and cost 1/CAND_UNROLL of
-    the per-candidate bookkeeping).  Soundness (clamp > epsilon
-    everywhere):
+    over the program's own block.  ``keys [G, 2, NCH]`` holds per-chunk
+    extremes of the candidate axial keys: row 0 = max over the chunk of
+    (a + r) = ``lo_c``, row 1 = min over the chunk of (a − r) = ``hi_c``;
+    chunks past ``nch`` only pad the row to a power of two.  Soundness
+    (clamp > epsilon everywhere):
 
     * behind chunk: ``lo_c < plo - clamp`` ⇒ every candidate in it has
       ``a + r < p_ax - clamp`` for every active lane ⇒ distance > clamp;
@@ -668,18 +613,21 @@ def _pair_window(keys_ref, ca, clamp, t, oa, lane_mask, chunks: int):
     The march steps by ``min(window min, cap)`` — never more than the true
     scene distance, and a skipped primitive can never be within epsilon
     (clamp ≥ 8·epsilon), so hits and misses are exactly those of the
-    unpruned march.  Returns chunk-granular ``(w_lo, w_hi, cap, phi)``.
+    unpruned march.  Returns chunk-granular
+    ``(w_lo, w_hi, cap, phi, skip_lb)``.
     """
-    lo_c = keys_ref[0, 0:1, :]                         # (1, C)
-    hi_c = keys_ref[0, 1:2, :]
+    width = _pow2(nch)
+    lo_c = pr.keys[tile, 0, pl.ds(0, width)]
+    hi_c = pr.keys[tile, 1, pl.ds(0, width)]
     p_ax = oa + t * ca
     plo = jnp.min(jnp.where(lane_mask, p_ax, _BIG))
     phi = jnp.max(jnp.where(lane_mask, p_ax, -_BIG))
-    behind = lo_c < plo - clamp
-    ahead = hi_c > phi + clamp
-    rel = jnp.logical_not(behind) & jnp.logical_not(ahead)
-    idxv = jax.lax.broadcasted_iota(jnp.int32, (1, chunks), 1)
-    w_lo = jnp.min(jnp.where(rel, idxv, chunks))
+    idxv = jax.lax.broadcasted_iota(jnp.int32, (width,), 0)
+    real = idxv < nch
+    behind = real & (lo_c < plo - clamp)
+    ahead = real & (hi_c > phi + clamp)
+    rel = real & jnp.logical_not(behind) & jnp.logical_not(ahead)
+    w_lo = jnp.min(jnp.where(rel, idxv, nch))
     w_hi = jnp.max(jnp.where(rel, idxv + 1, 0))
     BH = jnp.max(jnp.where(behind, lo_c, -_BIG))
     AH = jnp.min(jnp.where(ahead, hi_c, _BIG))
@@ -705,91 +653,76 @@ def _pair_m(cull_m: int, group: int) -> int:
                -(-m_arm // CAND_UNROLL) * CAND_UNROLL)
 
 
+def _cand_cols(pr: _Pair, tile, c0, n_cols: int):
+    """Rows ``0..n_cols-1`` of one candidate chunk as [CAND_UNROLL, 1]
+    columns (loaded once, outside any in-kernel AD)."""
+    return [pr.cand[tile, j, pl.ds(c0, CAND_UNROLL)][:, None]
+            for j in range(n_cols)]
+
+
+def _eval_prepped(kind: str, g, px, py, pz):
+    """Distance over a candidate-table accessor (rows from _prep_rows)."""
+    if kind == "torus":
+        return _GEN_FNS[kind](g, px, py, pz, unit_axis=True)
+    return _GEN_FNS[kind](g, px, py, pz)
+
+
+def _dense_runs(kind_counts, slot_gid, cull_pairs):
+    """Maximal runs of non-culled rows of one kind owned by one group:
+    ``(kind, kind_index, row_lo, row_hi, gid, first_slot)``."""
+    culled = {}
+    for (_gid, kind, _ki, r0, r1) in cull_pairs:
+        culled.setdefault(kind, []).append((r0, r1))
+    runs, off = [], 0
+    for ki, (kind, cnt) in enumerate(kind_counts):
+        r = 0
+        while r < cnt:
+            hit = [hi for lo, hi in culled.get(kind, []) if lo <= r < hi]
+            if hit:
+                r = hit[0]
+                continue
+            gid = int(slot_gid[off + r])
+            r1 = r + 1
+            while (r1 < cnt and int(slot_gid[off + r1]) == gid
+                   and not any(lo <= r1 < hi
+                               for lo, hi in culled.get(kind, []))):
+                r1 += 1
+            runs.append((kind, ki, r, r1, gid, off + r))
+            r = r1
+        off += cnt
+    return runs
+
+
 @functools.lru_cache(maxsize=32)
 def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
-                  max_steps: int, prim_chunk: int,
-                  cull_pairs: Tuple = (), cull_m: int = 0,
+                  max_steps: int, cull_pairs: Tuple = (), cull_m: int = 0,
                   omega: float = 1.0, mode: str = "march",
                   mat_vis: Tuple[int, ...] = (), has_sign: bool = False,
                   debug_window: bool = False, step_unroll: int = 1,
-                  early_out: bool = False):
-    """Build the pallas kernel fn for a scene structure.  Cached.
+                  early_out: bool = False, block: int = BLOCK_RAYS):
+    """Build the kernel body for a scene structure.  Cached.
 
     ``mode`` selects the program: ``"march"`` = the sphere-trace loop
-    (t/hit/d/steps outputs); ``"surface"`` = the one-shot surface pass at
-    given hit points (winning-leaf slot + material in slot mode, in-kernel
-    AD normals + material otherwise).  Keeping the two in separate Mosaic
-    programs is deliberate: round 2 fused them (plus per-pair culled/full
-    ``lax.cond`` double-emissions) into one kernel and Mosaic compile time
-    exploded to 29 minutes; small single-purpose programs compile in
-    seconds.  Candidate-list overflow no longer has an in-kernel fallback —
-    the host wraps the kernel in a ``lax.cond`` dense fallback instead
-    (see ``pallas_march_raw``).
+    (t/hit/d/steps outputs); ``"occlusion"`` = the same loop with only
+    hit/steps outputs; ``"surface"`` = the one-shot surface pass at given
+    hit points (winning-leaf slot + material in slot mode, in-kernel AD
+    normals + material otherwise).  The march and the surface pass are
+    separate programs: each stays small, which keeps compile time and
+    register use down.  Candidate-list overflow has no in-kernel fallback
+    — the host wraps the kernel in a ``lax.cond`` re-march with
+    full-group tables instead (see ``pallas_march_raw``).
 
-    Returns (kernel, n_kinds, slot_gid, dense_mode, slot_mode) where
-    dense_mode is 'scalar' or 'chunk'."""
+    Returns ``(kernel, slot_mode)``."""
     groups, tree = _build_groups(plan)
-
-    # rows excluded from the dense sweep (handled by culled passes)
-    culled_rows: Dict[str, list] = {}
-    for (_gid, kind, _ki, r0, r1) in cull_pairs:
-        culled_rows.setdefault(kind, []).append((r0, r1))
-
-    def is_culled(kind, row):
-        return any(lo <= row < hi for lo, hi in culled_rows.get(kind, []))
-
-    kind_index = {k: i for i, (k, _) in enumerate(kind_counts)}
-    offsets, off = {}, 0
-    for k, c in kind_counts:
-        offsets[k] = off
-        off += c
-
-    slot_gid = np.full(off, -1, np.int32)
+    n_kinds = len(kind_counts)
+    n_slots = sum(c for _, c in kind_counts)
+    slot_gid = np.full(n_slots, -1, np.int32)
     for g in groups:
         slot_gid[list(g.slots)] = g.gid
-
-    # dense slots: (kind, ki, row, gid, mat, slot) per non-culled primitive
-    dense_slots = []
-    for kind, cnt in kind_counts:
-        for row in range(cnt):
-            if is_culled(kind, row):
-                continue
-            s = offsets[kind] + row
-            mat = mat_vis[s] if mat_vis else -1
-            dense_slots.append((kind, kind_index[kind], row,
-                                int(slot_gid[s]), mat, s))
-    dense_mode = "scalar" if len(dense_slots) <= DENSE_SCALAR_MAX else "chunk"
-    # surface strategy: CSG min/max selects one leaf -> track its slot and
-    # build the normal host-side from the leaf's closed form; smooth
-    # unions blend leaves and need the in-kernel AD variant
+    runs = _dense_runs(kind_counts, slot_gid, cull_pairs)
+    # surface strategy: CSG min/max selects one leaf -> track its slot;
+    # smooth unions blend leaves and need the in-kernel AD variant
     slot_mode = not any(g.op == "sumexp" for g in groups)
-
-    # chunk tables for dense 'chunk' mode (and material info per chunk)
-    chunks = []
-    if dense_mode == "chunk":
-        slot0 = 0
-        for kind, cnt in kind_counts:
-            r0 = 0
-            while r0 < cnt:
-                if is_culled(kind, r0):
-                    hi = next(h for lo, h in culled_rows[kind]
-                              if lo <= r0 < h)
-                    r0 = hi
-                    continue
-                rows = min(prim_chunk, cnt - r0)
-                for lo, _hi in culled_rows.get(kind, []):
-                    if r0 < lo < r0 + rows:
-                        rows = lo - r0
-                chunks.append((kind, kind_index[kind], r0, rows, slot0 + r0))
-                r0 += rows
-            slot0 += cnt
-    group_in_chunk = [
-        [bool((slot_gid[gs0:gs0 + rows] == g.gid).any())
-         for (_k, _ki, _r0, rows, gs0) in chunks]
-        for g in groups
-    ]
-
-    n_kinds = len(kind_counts)
     n_pairs = len(cull_pairs)
     # candidate slots per pair, in whole unroll chunks, rounded UP so a
     # cull_m >= group size always yields m >= group (overflow impossible —
@@ -798,10 +731,12 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
     # for a min reduction
     pair_m = [_pair_m(cull_m, r1 - r0)
               for (_g, _k, _ki, r0, r1) in cull_pairs]
+    shp = (block,)
+    tiles_per = RAY_TILE // block
 
     # ---- group accumulator helpers -------------------------------------
 
-    def accs_init(shp):
+    def accs_init():
         accs = []
         for g in groups:
             if g.op == "min":
@@ -812,14 +747,12 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
                 accs.append(jnp.zeros(shp))
         return accs
 
-    def fold_value(accs, gid, val):
-        g = groups[gid]
-        if g.op == "min":
-            accs[gid] = jnp.minimum(accs[gid], val)
-        elif g.op == "max":
-            accs[gid] = jnp.maximum(accs[gid], val)
-        else:
-            accs[gid] = accs[gid] + val
+    def fold(op, acc, val):
+        if op == "min":
+            return jnp.minimum(acc, val)
+        if op == "max":
+            return jnp.maximum(acc, val)
+        return acc + val
 
     def resolve_groups(accs):
         out = []
@@ -854,184 +787,128 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
             return -k * jnp.log(jnp.maximum(s, 1e-30))
         raise ValueError(op)
 
+    def run_loop(ctx, run, body, carry):
+        """Fold ``body(carry, d_fn, slot)`` over one dense run:
+        ``d_fn(px, py, pz)`` evaluates that row (broadcast scalars) and
+        ``slot`` is its global slot."""
+        kind, ki, r0, r1, _gid, s0 = run
+        pref = ctx["params"][ki]
+        fn = _GEN_FNS[kind]
+        P = PARAM_WIDTH[kind]
+
+        def at(row, c):
+            s = [pref[row, j] for j in range(P)]
+            return body(c, lambda x, y, z: fn(lambda j: s[j], x, y, z),
+                        s0 + (row - r0))
+
+        if r1 - r0 <= UNROLL_RUN:
+            for row in range(r0, r1):
+                carry = at(row, carry)
+            return carry
+        return jax.lax.fori_loop(r0, r1, at, carry)
+
     # ---- march-time scene distance --------------------------------------
 
-    def scene_distance(param_refs, gid_ref, pair_refs, pair_consts,
-                       dense_consts, px, py, pz, t, oa, ca, active,
-                       eps_v):
-        shp = px.shape
-        accs = accs_init(shp)
-        wwidth = []  # per-pair window widths this step (debug stats)
-
+    def scene_distance(ctx, px, py, pz, t, oa, ca, active, eps_v):
+        accs = accs_init()
+        wsum = jnp.float32(0.0)
+        tile = ctx["tile"]
         for pi, (gid, kind, ki, row_lo, row_hi) in enumerate(cull_pairs):
-            cand_ref, keys_ref, _misc_ref, hsuf_ref = pair_refs[pi]
-            clamp = pair_consts[pi][1]
-            count_c = pair_consts[pi][3]
+            pr = ctx["pairs"][pi]
+            count_c, _cos_lo, clamp, _surf = ctx["consts"][pi]
             P = PARAM_WIDTH[kind]
-            fn = _scalar_fn(kind, prepped=True)
-            vfn = _vec_fn(kind, prepped=True)
             m = pair_m[pi]
+            nch = m // CAND_UNROLL
             g_op = groups[gid].op   # 'min' (union) or 'max' (intersect)
             g_size = row_hi - row_lo
+            w_lo, cb_hi, cap, phi, skip_lb = _pair_window(
+                pr, tile, nch, ca, clamp, t, oa, active > 0.0)
+            # running-min early-out (the reference's sorted nearest-first
+            # union scan, SdfForm.fs:22-34 + SdfBoundary.fs:266-268): stop
+            # the ascending axial scan once every remaining candidate
+            # provably cannot beat any lane's accumulated min.  Candidate
+            # k's distance to a lane at axial p is >= hi_key_k - p (sound
+            # even inside bounds: d_prim(x) >= |x-c| - r >= (a - r) - p_ax),
+            # so with H_cb = min_{k >= cb·U} hi_key_k (per-chunk suffix-min)
+            # the scan can stop when max_lanes(acc + p_hi) <= H_cb — the
+            # group min is EXACTLY unchanged.  EO_STRIDE chunks evaluate
+            # per test; overshoot reads clamp to the last chunk (min-fold
+            # idempotent, candidates past the window are ≥ cap away).
+            use_eo = early_out and g_op == "min"
+            stride = EO_STRIDE if use_eo else 1
+            last_cb = nch - 1
+            red0 = _BIG if g_op == "min" else -_BIG
 
-            def culled_pass(_, cand_ref=cand_ref, keys_ref=keys_ref,
-                            hsuf_ref=hsuf_ref, clamp=clamp,
-                            count_c=count_c, fn=fn, vfn=vfn, P=P, m=m,
-                            g_op=g_op, g_size=g_size):
-                w_lo, cb_hi, cap, phi, skip_lb = _pair_window(
-                    keys_ref, ca, clamp, t, oa, active > 0.0,
-                    m // CAND_UNROLL)
-                # running-min early-out (the reference's sorted
-                # nearest-first union scan, SdfForm.fs:22-34 +
-                # SdfBoundary.fs:266-268): stop the ascending axial scan
-                # once every remaining candidate provably cannot beat any
-                # lane's accumulated min.  Candidate k's distance to a lane
-                # at axial p is >= hi_key_k - p (sound even inside bounds:
-                # d_prim(x) >= |x-c| - r >= (a - r) - p_ax), so with
-                # H_cb = min_{k >= cb·U} hi_key_k (SMEM table, host-side
-                # per-chunk suffix-min) the scan can stop when
-                # max_lanes(acc + p_hi) <= H_cb — the group min is EXACTLY
-                # unchanged, like the reference's lower-bound skip.
-                # (min groups only; max groups scan their whole window)
-                stop_ref = phi   # max over active lanes of p_ax
+            def wcond(carry, pr=pr, cb_hi=cb_hi, phi=phi, use_eo=use_eo,
+                      last_cb=last_cb):
+                cb, _acc, amax = carry
+                if not use_eo:
+                    return cb < cb_hi
+                cbl = jnp.minimum(cb, last_cb)
+                return jnp.logical_and(
+                    cb < cb_hi, amax + phi > pr.hsuf[tile, cbl])
 
-                red0 = _BIG if g_op == "min" else -_BIG
-                # the running-max cross-lane reduction feeds ONLY the
-                # early-out condition — skip it (and its scalar sync)
-                # entirely when the early-out is off.  With the early-out
-                # on, EO_STRIDE chunks evaluate per while iteration so the
-                # cross-lane max + SMEM suffix-min read amortize (the
-                # round-4 per-chunk sync cost ~9% of the frame and made
-                # the early-out a net loss); overshoot reads clamp to the
-                # last chunk (min-fold idempotent, candidates past the
-                # window are ≥ cap away — the result is exactly the
-                # unstrided scan's).
-                use_eo = early_out and not NO_EARLYOUT and g_op == "min"
-                stride = EO_STRIDE if use_eo else 1
-                last_cb = m // CAND_UNROLL - 1
+            def wbody(carry, pr=pr, kind=kind, P=P, g_op=g_op,
+                      stride=stride, use_eo=use_eo, last_cb=last_cb):
+                cb, acc, amax = carry
+                for ks in range(stride):
+                    cbk = jnp.minimum(cb + ks, last_cb) if ks else cb
+                    cols = _cand_cols(pr, tile, cbk * CAND_UNROLL, P)
+                    d = _eval_prepped(kind, lambda j: cols[j],
+                                      px[None], py[None], pz[None])
+                    if g_op == "min":
+                        acc = jnp.minimum(acc, jnp.min(d, axis=0))
+                    else:
+                        acc = jnp.maximum(acc, jnp.max(d, axis=0))
+                if use_eo:
+                    amax = jnp.max(jnp.where(active > 0.0, acc, -_BIG))
+                # without the early-out the carried max is never read:
+                # pass it through (a constant loop output cannot lower)
+                return cb + stride, acc, amax
 
-                def wcond(carry):
-                    cb, acc, amax = carry
-                    if not use_eo:
-                        return cb < cb_hi
-                    cbl = jnp.minimum(cb, last_cb)
-                    return jnp.logical_and(
-                        cb < cb_hi, amax + stop_ref > hsuf_ref[0, 0, cbl])
-
-                if SCALAR_CAND:
-                    def wbody(carry):
-                        cb, acc, _amax = carry
-                        for ks in range(stride):
-                            cbk = jnp.minimum(cb + ks, last_cb) \
-                                if ks else cb
-                            c0 = cbk * CAND_UNROLL
-                            for k in range(CAND_UNROLL):
-                                s = tuple(cand_ref[c0 + k, j]
-                                          for j in range(P))
-                                dk = fn(s, px, py, pz)
-                                acc = jnp.minimum(acc, dk) \
-                                    if g_op == "min" \
-                                    else jnp.maximum(acc, dk)
-                        amax = (jnp.max(jnp.where(active > 0.0, acc,
-                                                  -_BIG))
-                                if use_eo else jnp.float32(0.0))
-                        return cb + stride, acc, amax
-                else:
-                    def wbody(carry):
-                        cb, acc, _amax = carry
-                        for ks in range(stride):
-                            cbk = jnp.minimum(cb + ks, last_cb) \
-                                if ks else cb
-                            blk = cand_ref[pl.ds(cbk * CAND_UNROLL,
-                                                 CAND_UNROLL), :]
-                            d = vfn(blk, px, py, pz)      # [CK, S, 128]
-                            if g_op == "min":
-                                acc = jnp.minimum(acc, jnp.min(d, axis=0))
-                            else:
-                                acc = jnp.maximum(acc, jnp.max(d, axis=0))
-                        amax = (jnp.max(jnp.where(active > 0.0, acc,
-                                                  -_BIG))
-                                if use_eo else jnp.float32(0.0))
-                        return cb + stride, acc, amax
-
-                _cb, win, _am = jax.lax.while_loop(
-                    wcond, wbody,
-                    (w_lo, jnp.full(shp, red0), jnp.float32(_BIG)))
-                width = (jnp.maximum(cb_hi - w_lo, 0)
-                         * CAND_UNROLL).astype(jnp.float32)
-                if g_op == "min":
-                    return jnp.minimum(win, cap), width
+            _cb, win, _am = jax.lax.while_loop(
+                wcond, wbody, (w_lo, jnp.full(shp, red0), jnp.float32(_BIG)))
+            wsum = wsum + (jnp.maximum(cb_hi - w_lo, 0)
+                           * CAND_UNROLL).astype(jnp.float32)
+            if g_op == "min":
+                gval = jnp.minimum(win, cap)
+            else:
                 # intersect (max) group, the reference's boundary
                 # max-distance pruning re-expressed (SdfForm.fs:51-67):
                 # skipped window chunks contribute their best lower bound;
                 # a member excluded from the candidate table entirely is
-                # > margin ≥ 2·eps from every reachable point, so the
-                # group value is floored there (no hit can fire and the
-                # step stays conservative — a LOWER bound of the true max)
-                excl = jnp.where(count_c < float(g_size),
-                                 2.0 * eps_v, -_BIG)
-                return jnp.maximum(jnp.maximum(win, skip_lb), excl), width
+                # > margin ≥ 2·eps from every reachable point, so the group
+                # value is floored there (no hit can fire and the step
+                # stays conservative — a LOWER bound of the true max)
+                excl = jnp.where(count_c < float(g_size), 2.0 * eps_v, -_BIG)
+                gval = jnp.maximum(jnp.maximum(win, skip_lb), excl)
+            accs[gid] = fold(g_op, accs[gid], gval)
 
-            # overflow (count > m) is handled host-side by a lax.cond dense
-            # fallback around the whole kernel — emitting a full-sweep body
-            # here per pair per pass was the round-2 compile-time explosion
-            gval, width = culled_pass(0)
-            wwidth.append(width)
-            fold_value(accs, gid, gval)
+        for run in runs:
+            gid = run[4]
+            g = groups[gid]
 
-        if dense_mode == "scalar":
-            for (kind, s_params, gid, _mat, _slot) in dense_consts:
-                fn = _scalar_fn(kind, prepped=False)
-                d = fn(s_params, px, py, pz)
-                if groups[gid].op == "sumexp":
-                    d = jnp.exp(-d / groups[gid].k)
-                fold_value(accs, gid, d)
-        else:
-            px3, py3, pz3 = px[..., None], py[..., None], pz[..., None]
-            for ci, (kind, ki, r0, rows, gs0) in enumerate(chunks):
-                params = param_refs[ki][r0:r0 + rows, :]
-                d = _soa_fn(kind)(params, px3, py3, pz3)
-                gid_chunk = gid_ref[gs0:gs0 + rows].reshape(1, 1, rows)
-                for gi, g in enumerate(groups):
-                    if not group_in_chunk[gi][ci]:
-                        continue
-                    mask = gid_chunk == g.gid
-                    if g.op == "min":
-                        dm = jnp.where(mask, d, _BIG)
-                        fold_value(accs, gi, jnp.min(dm, axis=-1))
-                    elif g.op == "max":
-                        dm = jnp.where(mask, d, -_BIG)
-                        fold_value(accs, gi, jnp.max(dm, axis=-1))
-                    else:
-                        dm = jnp.where(mask, jnp.exp(-d / g.k), 0.0)
-                        fold_value(accs, gi, jnp.sum(dm, axis=-1))
+            def body(acc, d_fn, _slot, g=g):
+                d = d_fn(px, py, pz)
+                if g.op == "sumexp":
+                    d = jnp.exp(-d / g.k)
+                return fold(g.op, acc, d)
 
-        wsum = jnp.float32(0.0)
-        for w in wwidth:
-            wsum = wsum + w
+            accs[gid] = run_loop(ctx, run, body, accs[gid])
+
         return ev_tree(resolve_groups(accs), tree), wsum
 
     # ---- surface pass (slot mode): winning leaf + material ---------------
-    # CSG min/max selects exactly one leaf primitive at any surface point,
-    # so instead of in-kernel AD the kernel can track the winning leaf's
-    # global slot (plus a sign flip through subtract) and let the host
-    # compute the normal from that leaf's closed form — differentiably and
-    # outside the custom VJP.  Only smooth unions (sumexp) blend leaves and
-    # need the AD variant below.
 
-    def surface_eval_slot(param_refs, gid_ref, mat_ref, pair_refs,
-                          pair_consts, dense_consts, px, py, pz, t, oa,
-                          ca, hitm, eps_v):
+    def surface_eval_slot(ctx, px, py, pz, hitm):
         """Slot-mode surface pass: CSG min/max selects exactly one leaf, so
         track the winning leaf's signed slot code through the plan tree,
         then recover its gradient with ONE masked-cotangent vjp sweep over
         the candidate lists (cotangent 1 on candidates whose slot equals
         the winner — the broadcast-transpose sums exactly the winner's
-        gradient).  All in-kernel, all vector lanes: replaces the
-        host-side ``leaf_normal`` per-ray row gather, which XLA lowers to
-        a serialized dynamic gather (~44 ms/Mray on v5e, more when fused).
-        Returns (gx, gy, gz, material_index) with the CSG sign applied."""
-        shp = px.shape
+        gradient).  Returns (gx, gy, gz, material_index, code) with the CSG
+        sign applied."""
+        tile = ctx["tile"]
         vs = []          # per group: [value, slot_code]
         for g in groups:
             init_v = _BIG if g.op == "min" else -_BIG
@@ -1040,159 +917,83 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
         ms = jnp.full(shp, -1.0)     # material index (f32)
 
         for pi, (gid, kind, ki, row_lo, row_hi) in enumerate(cull_pairs):
-            cand_ref, keys_ref, _misc_ref, _hsuf_ref = pair_refs[pi]
-            count = pair_consts[pi][3]
+            pr = ctx["pairs"][pi]
+            count = ctx["consts"][pi][0]
             P = PARAM_WIDTH[kind]
-            fn = _scalar_fn(kind, prepped=True)
-            vfn = _vec_fn(kind, prepped=True)
             m = pair_m[pi]
-            g_op = groups[gid].op
+            mn = groups[gid].op == "min"
+            # one loop over the whole candidate list: the material winner
+            # can be far from the hit (cutter surfaces), and it subsumes
+            # the hit-shell window for the leaf arg-extremum
+            n_c = jnp.minimum(count, float(m)).astype(jnp.int32)
 
-            def culled_sp(_, cand_ref=cand_ref, count=count,
-                          fn=fn, vfn=vfn, P=P, m=m, g_op=g_op):
-                # one loop over the whole candidate list: the material
-                # winner can be far from the hit (cutter surfaces), and it
-                # subsumes the hit-shell window for the leaf arg-extremum
-                n_c = jnp.minimum(count, float(m)).astype(jnp.int32)
-                mn = g_op == "min"
-                ex0 = _BIG if mn else -_BIG
+            def body(cb, carry, pr=pr, kind=kind, P=P, mn=mn):
+                bd, bs, md_, ms_ = carry
+                cols = _cand_cols(pr, tile, cb * CAND_UNROLL, P + 2)
+                d = _eval_prepped(kind, lambda j: cols[j],
+                                  px[None], py[None], pz[None])
+                matc, slotc = cols[P], cols[P + 1]
+                ck = jax.lax.broadcasted_iota(jnp.int32, d.shape, 0)
+                # leaf arg-extremum within the chunk; first-in-scan-order
+                # tie-break
+                dext = jnp.min(d, axis=0) if mn else jnp.max(d, axis=0)
+                hit_ext = (d <= dext[None]) if mn else (d >= dext[None])
+                kfst = jnp.min(jnp.where(hit_ext, ck, CAND_UNROLL), axis=0)
+                swin = jnp.sum(jnp.where(ck == kfst[None], slotc, 0.0),
+                               axis=0)
+                better = ((dext < bd) if mn else (dext > bd)) & hitm
+                bd = jnp.where(better, dext, bd)
+                bs = jnp.where(better, swin + 1.0, bs)
+                # material argmin over mat>=0 candidates (always a MIN —
+                # SdfObject.fs:26-46 — whatever the group op)
+                dm = jnp.where(matc >= 0.0, d, _BIG)
+                dmm = jnp.min(dm, axis=0)
+                mfst = jnp.min(jnp.where(dm <= dmm[None], ck, CAND_UNROLL),
+                               axis=0)
+                mwin = jnp.sum(jnp.where(ck == mfst[None], matc, 0.0),
+                               axis=0)
+                mb = dmm < md_
+                md_ = jnp.where(mb, dmm, md_)
+                ms_ = jnp.where(mb, mwin, ms_)
+                return bd, bs, md_, ms_
 
-                if SCALAR_CAND:
-                    def body(cb, carry):
-                        bd, bs, md_, ms_ = carry
-                        c0 = cb * CAND_UNROLL
-                        for k in range(CAND_UNROLL):
-                            s = tuple(cand_ref[c0 + k, j]
-                                      for j in range(P))
-                            mat = cand_ref[c0 + k, P]
-                            slot = cand_ref[c0 + k, P + 1]
-                            d = fn(s, px, py, pz)
-                            better = ((d < bd) if mn else (d > bd)) & hitm
-                            bd = jnp.where(better, d, bd)
-                            bs = jnp.where(better, slot + 1.0, bs)
-                            mb = (d < md_) & (mat >= 0.0)
-                            md_ = jnp.where(mb, d, md_)
-                            ms_ = jnp.where(mb, mat, ms_)
-                        return bd, bs, md_, ms_
-                else:
-                    def body(cb, carry):
-                        bd, bs, md_, ms_ = carry
-                        blk = cand_ref[pl.ds(cb * CAND_UNROLL,
-                                             CAND_UNROLL), :]
-                        d = vfn(blk, px, py, pz)        # [CK, S, 128]
-                        matc = blk[:, P][:, None, None]
-                        slotc = blk[:, P + 1][:, None, None]
-                        ck = jax.lax.broadcasted_iota(jnp.int32,
-                                                      d.shape, 0)
-                        # leaf arg-extremum within the chunk; first-in-
-                        # scan-order tie-break matches the scalar scan
-                        dext = jnp.min(d, axis=0) if mn \
-                            else jnp.max(d, axis=0)
-                        hit_ext = (d <= dext[None]) if mn \
-                            else (d >= dext[None])
-                        kfst = jnp.min(
-                            jnp.where(hit_ext, ck, CAND_UNROLL), axis=0)
-                        swin = jnp.sum(jnp.where(ck == kfst[None],
-                                                 slotc, 0.0), axis=0)
-                        better = ((dext < bd) if mn else (dext > bd)) \
-                            & hitm
-                        bd = jnp.where(better, dext, bd)
-                        bs = jnp.where(better, swin + 1.0, bs)
-                        # material argmin over mat>=0 candidates (always a
-                        # MIN — SdfObject.fs:26-46 — whatever the group op)
-                        dm = jnp.where(matc >= 0.0, d, _BIG)
-                        dmm = jnp.min(dm, axis=0)
-                        mfst = jnp.min(
-                            jnp.where(dm <= dmm[None], ck, CAND_UNROLL),
-                            axis=0)
-                        mwin = jnp.sum(jnp.where(ck == mfst[None],
-                                                 matc, 0.0), axis=0)
-                        mb = dmm < md_
-                        md_ = jnp.where(mb, dmm, md_)
-                        ms_ = jnp.where(mb, mwin, ms_)
-                        return bd, bs, md_, ms_
-
-                init = (jnp.full(shp, ex0), jnp.zeros(shp), md, ms)
-                return jax.lax.fori_loop(
-                    0, (n_c + CAND_UNROLL - 1) // CAND_UNROLL, body, init)
-
-            # overflow handled host-side (see _build_kernel docstring)
-            bd, bs, md, ms = culled_sp(0)
-            g = groups[gid]
-            if g.op == "max":
-                # excluded-member floor, mirroring the march's 'excl'
-                # (advisor r4 high): when the cone excluded members
-                # (count < group size), every excluded distance is
-                # > margin ≥ 2·eps from the reachable set, so the true
-                # group max exceeds the hit shell there — floor the
-                # scanned max at 2·eps with code 0 ("no leaf") so an
-                # underestimated (possibly negative) culled max cannot
-                # win the CSG tree with a fabricated winning leaf.  At
-                # genuine hit lanes a floored group always loses the
-                # tree (root ≤ eps < 2·eps), so normals/materials of
-                # real hits are exactly those of the dense pass.
-                g_size = row_hi - row_lo
-                count = pair_consts[pi][3]
-                low = (count < float(g_size)) & (bd < 2.0 * eps_v)
-                bd = jnp.where(low, 2.0 * eps_v, bd)
+            init = (jnp.full(shp, _BIG if mn else -_BIG), jnp.zeros(shp),
+                    md, ms)
+            bd, bs, md, ms = jax.lax.fori_loop(
+                0, (n_c + CAND_UNROLL - 1) // CAND_UNROLL, body, init)
+            if not mn:
+                # excluded-member floor, mirroring the march's 'excl': when
+                # the cone excluded members (count < group size), every
+                # excluded distance is > margin ≥ 2·eps from the reachable
+                # set, so the true group max exceeds the hit shell there —
+                # floor the scanned max at 2·eps with code 0 ("no leaf") so
+                # an underestimated culled max cannot win the CSG tree with
+                # a fabricated winning leaf.
+                eps2 = 2.0 * ctx["eps"]
+                low = (count < float(row_hi - row_lo)) & (bd < eps2)
+                bd = jnp.where(low, eps2, bd)
                 bs = jnp.where(low, 0.0, bs)
-            if g.op == "min":
-                better = bd < vs[gid][0]
-            else:
-                better = bd > vs[gid][0]
+            better = (bd < vs[gid][0]) if mn else (bd > vs[gid][0])
             vs[gid] = [jnp.where(better, bd, vs[gid][0]),
                        jnp.where(better, bs, vs[gid][1])]
 
-        if dense_mode == "scalar":
-            for (kind, s_params, gid, mat, slot) in dense_consts:
-                fn = _scalar_fn(kind, prepped=False)
-                d = fn(s_params, px, py, pz)
-                g = groups[gid]
-                better = (d < vs[gid][0]) if g.op == "min" \
-                    else (d > vs[gid][0])
-                vs[gid] = [jnp.where(better, d, vs[gid][0]),
-                           jnp.where(better, float(slot + 1), vs[gid][1])]
-                if mat >= 0:
-                    mb = d < md
-                    md = jnp.where(mb, d, md)
-                    ms = jnp.where(mb, float(mat), ms)
-        else:
-            px3, py3, pz3 = px[..., None], py[..., None], pz[..., None]
-            for ci, (kind, ki, r0, rows, gs0) in enumerate(chunks):
-                params = param_refs[ki][r0:r0 + rows, :]
-                soa = _soa_fn(kind)
-                d3 = soa(params, px3, py3, pz3)
-                gid_chunk = gid_ref[gs0:gs0 + rows].reshape(1, 1, rows)
-                lane = jax.lax.broadcasted_iota(jnp.int32, (1, 1, rows), 2)
-                for gi, g in enumerate(groups):
-                    if not group_in_chunk[gi][ci]:
-                        continue
-                    maskc = gid_chunk == g.gid
-                    if g.op == "min":
-                        dm = jnp.where(maskc, d3, _BIG)
-                        red = jnp.min(dm, axis=-1)
-                        first = jnp.min(jnp.where(dm <= red[..., None],
-                                                  lane, rows), axis=-1)
-                        better = (red < vs[gi][0]) & hitm
-                    else:
-                        dm = jnp.where(maskc, d3, -_BIG)
-                        red = jnp.max(dm, axis=-1)
-                        first = jnp.min(jnp.where(dm >= red[..., None],
-                                                  lane, rows), axis=-1)
-                        better = (red > vs[gi][0]) & hitm
-                    slotc = (first + (gs0 + 1)).astype(jnp.float32)
-                    vs[gi] = [jnp.where(better, red, vs[gi][0]),
-                              jnp.where(better, slotc, vs[gi][1])]
-                mats = mat_ref[gs0:gs0 + rows].reshape(1, 1, rows)
-                dmm = jnp.where(mats >= 0.0, d3, _BIG)
-                mmin = jnp.min(dmm, axis=-1)
-                mfirst = jnp.min(jnp.where(dmm <= mmin[..., None],
-                                           lane, rows), axis=-1)
-                onehot = lane == mfirst[..., None]
-                mval = jnp.sum(jnp.where(onehot, mats, 0.0), axis=-1)
-                mb = (mmin < md) & (mval >= 0.0)
-                md = jnp.where(mb, mmin, md)
-                ms = jnp.where(mb, mval, ms)
+        for run in runs:
+            gid = run[4]
+            mn = groups[gid].op == "min"
+
+            def body(carry, d_fn, slot, mn=mn):
+                v, c, md_, ms_ = carry
+                d = d_fn(px, py, pz)
+                better = (d < v) if mn else (d > v)
+                v = jnp.where(better, d, v)
+                c = jnp.where(better, slot + 1.0, c)
+                mat = ctx["mat"][slot]
+                mb = (d < md_) & (mat >= 0.0)
+                return v, c, jnp.where(mb, d, md_), jnp.where(mb, mat, ms_)
+
+            v, c, md, ms = run_loop(ctx, run, body,
+                                    (vs[gid][0], vs[gid][1], md, ms))
+            vs[gid] = [v, c]
 
         def ev_s(node):
             if node[0] == "g":
@@ -1200,10 +1001,9 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
             op, _k, kids = node
             vals = [ev_s(x) for x in kids]
             if op == "subtract":
-                (va, ca), (vb, cb) = vals
+                (va, ca_), (vb, cb_) = vals
                 sel = va > -vb
-                return (jnp.maximum(va, -vb),
-                        jnp.where(sel, ca, -cb))
+                return (jnp.maximum(va, -vb), jnp.where(sel, ca_, -cb_))
             out = vals[0]
             for v in vals[1:]:
                 sel = (out[0] <= v[0]) if op == "union" else \
@@ -1217,99 +1017,53 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
         # ---- winner-gradient sweep (normals) -----------------------------
         target = jnp.abs(code) - 1.0      # winning global slot, -1 = none
         sgn = jnp.sign(code)              # subtract flips the b-side sign
-        ones = jnp.ones(shp)
-        gx = jnp.zeros(shp)
-        gy = jnp.zeros(shp)
-        gz = jnp.zeros(shp)
-
-        def val_grad(fn, s):
-            d, vjp = jax.vjp(lambda ax, ay, az: fn(s, ax, ay, az),
-                             px, py, pz)
-            ggx, ggy, ggz = vjp(ones)
-            return d, ggx, ggy, ggz
+        grad = (jnp.zeros(shp), jnp.zeros(shp), jnp.zeros(shp))
 
         for pi, (gid, kind, ki, row_lo, row_hi) in enumerate(cull_pairs):
-            cand_ref, _keys_ref, _misc_ref, _hsuf_ref = pair_refs[pi]
-            count = pair_consts[pi][3]
+            pr = ctx["pairs"][pi]
+            count = ctx["consts"][pi][0]
             P = PARAM_WIDTH[kind]
-            fn = _scalar_fn(kind, prepped=True)
-            vfn = _vec_fn(kind, prepped=True)
-            m = pair_m[pi]
-            n_c = jnp.minimum(count, float(m)).astype(jnp.int32)
+            n_c = jnp.minimum(count, float(pair_m[pi])).astype(jnp.int32)
 
-            if SCALAR_CAND:
-                def nbody(cb, carry, cand_ref=cand_ref, fn=fn, P=P):
-                    gx_, gy_, gz_ = carry
-                    c0 = cb * CAND_UNROLL
-                    for k in range(CAND_UNROLL):
-                        s = tuple(cand_ref[c0 + k, j] for j in range(P))
-                        slot = cand_ref[c0 + k, P + 1]
-                        sel = (slot == target) & hitm
-                        _d, ggx, ggy, ggz = val_grad(fn, s)
-                        gx_ = jnp.where(sel, ggx, gx_)
-                        gy_ = jnp.where(sel, ggy, gy_)
-                        gz_ = jnp.where(sel, ggz, gz_)
-                    return gx_, gy_, gz_
-            else:
-                def nbody(cb, carry, cand_ref=cand_ref, vfn=vfn, P=P):
-                    gx_, gy_, gz_ = carry
-                    blk = cand_ref[pl.ds(cb * CAND_UNROLL,
-                                         CAND_UNROLL), :]
-                    slotc = blk[:, P + 1][:, None, None]
-                    _d, vjpf = jax.vjp(
-                        lambda a, b, c: vfn(blk, a, b, c), px, py, pz)
-                    # duplicate padded rows can double-count the winner's
-                    # gradient — harmless, the direction is normalized
-                    ct = jnp.where(slotc == target[None], 1.0, 0.0)
-                    ggx, ggy, ggz = vjpf(ct)
-                    return gx_ + ggx, gy_ + ggy, gz_ + ggz
+            def nbody(cb, carry, pr=pr, kind=kind, P=P):
+                cols = _cand_cols(pr, tile, cb * CAND_UNROLL, P + 2)
+                slotc = cols[P + 1]
+                _d, vjpf = jax.vjp(
+                    lambda a, b, c: _eval_prepped(
+                        kind, lambda j: cols[j], a[None], b[None], c[None]),
+                    px, py, pz)
+                # duplicate padded rows can double-count the winner's
+                # gradient — harmless, the direction is normalized
+                ct = jnp.where(slotc == target[None], 1.0, 0.0)
+                gg = vjpf(ct)
+                return tuple(x + y for x, y in zip(carry, gg))
 
-            gx, gy, gz = jax.lax.fori_loop(
-                0, (n_c + CAND_UNROLL - 1) // CAND_UNROLL, nbody,
-                (gx, gy, gz))
+            grad = jax.lax.fori_loop(
+                0, (n_c + CAND_UNROLL - 1) // CAND_UNROLL, nbody, grad)
 
-        if dense_mode == "scalar":
-            for (kind, s_params, gid, mat, slot) in dense_consts:
-                fn = _scalar_fn(kind, prepped=False)
-                _d, ggx, ggy, ggz = val_grad(fn, s_params)
-                sel = target == float(slot)
-                gx = jnp.where(sel, ggx, gx)
-                gy = jnp.where(sel, ggy, gy)
-                gz = jnp.where(sel, ggz, gz)
-        else:
-            for ci, (kind, ki, r0, rows, gs0) in enumerate(chunks):
-                params = param_refs[ki][r0:r0 + rows, :]
-                soa = _soa_fn(kind)
-                # int32 iota then cast: Mosaic rejects float iota results
-                lane = jax.lax.broadcasted_iota(
-                    jnp.int32, (1, 1, rows), 2).astype(jnp.float32)
+        for run in runs:
+            def gbody(carry, d_fn, slot):
+                _d, vjpf = jax.vjp(d_fn, px, py, pz)
+                gg = vjpf(jnp.ones(shp))
+                sel = target == slot
+                return tuple(jnp.where(sel, y, x) for x, y in zip(carry, gg))
 
-                def f(a, b, c, params=params, soa=soa, lane=lane,
-                      gs0=gs0, rows=rows):
-                    d3 = soa(params, a[..., None], b[..., None],
-                             c[..., None])
-                    sel = (lane + float(gs0)) == target[..., None]
-                    return jnp.sum(jnp.where(sel, d3, 0.0), axis=-1)
+            grad = run_loop(ctx, run, gbody, grad)
 
-                _d, vjpf = jax.vjp(f, px, py, pz)
-                ggx, ggy, ggz = vjpf(ones)
-                gx, gy, gz = gx + ggx, gy + ggy, gz + ggz
-
+        gx, gy, gz = grad
         # the signed winning-leaf code is exported too: the implicit-diff
         # backward differentiates ONLY that leaf (ops/march._leaf_scene_d)
         return sgn * gx, sgn * gy, sgn * gz, ms, code
 
     # ---- surface pass (AD mode): value + gradient + material -------------
 
-    def surface_eval(param_refs, gid_ref, mat_ref, pair_refs, pair_consts,
-                     dense_consts, px, py, pz, t, oa, ca, hitm, eps_v):
+    def surface_eval(ctx, px, py, pz, t, oa, ca, hitm):
         """At the (backed-off) hit points: per-group (value, ∇value) plus
         the global material argmin over material-visible primitives.
-        Window bounds come from the hit lanes' t-range; the window clamp
-        doubles as the relevance margin (≥ 8·epsilon ≫ the hit shell), so
-        the local argmin — the only thing normals/materials depend on — is
-        always inside the window."""
-        shp = px.shape
+        Window bounds come from the hit lanes' t-range with the hit-shell
+        margin, so the local argmin — the only thing normals depend on —
+        is always inside the window."""
+        tile = ctx["tile"]
         ones = jnp.ones(shp)
         vg = []          # per group: (v, gx, gy, gz) or sumexp partials
         for g in groups:
@@ -1325,197 +1079,131 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
         md = jnp.full(shp, _BIG)     # material argmin distance
         ms = jnp.full(shp, -1.0)     # material index (f32)
 
-        def fold_vg(gid, d, gx, gy, gz):
-            g = groups[gid]
-            v = vg[gid]
-            if g.op == "min":
-                better = d < v[0]
-                vg[gid] = [jnp.where(better, x, y)
-                           for x, y in zip((d, gx, gy, gz), v)]
-            elif g.op == "max":
-                better = d > v[0]
-                vg[gid] = [jnp.where(better, x, y)
-                           for x, y in zip((d, gx, gy, gz), v)]
-            else:
-                e = jnp.exp(-d / g.k)
-                vg[gid] = [v[0] + e, v[1] + e * gx, v[2] + e * gy,
-                           v[3] + e * gz]
+        def fold_vg(op, k, v, d, gx, gy, gz):
+            if op in ("min", "max"):
+                better = (d < v[0]) if op == "min" else (d > v[0])
+                return [jnp.where(better, x, y)
+                        for x, y in zip((d, gx, gy, gz), v)]
+            e = jnp.exp(-d / k)
+            return [v[0] + e, v[1] + e * gx, v[2] + e * gy, v[3] + e * gz]
 
-        def val_grad(fn, s):
-            d, vjp = jax.vjp(lambda ax, ay, az: fn(s, ax, ay, az),
-                             px, py, pz)
+        def val_grad(d_fn):
+            d, vjp = jax.vjp(d_fn, px, py, pz)
             gx, gy, gz = vjp(ones)
             return d, gx, gy, gz
 
         for pi, (gid, kind, ki, row_lo, row_hi) in enumerate(cull_pairs):
-            cand_ref, keys_ref, _misc_ref, _hsuf_ref = pair_refs[pi]
-            surf_clamp = pair_consts[pi][2]
-            count = pair_consts[pi][3]
+            pr = ctx["pairs"][pi]
+            count, _cos, _clamp, surf_clamp = ctx["consts"][pi]
             P = PARAM_WIDTH[kind]
-            fn = _scalar_fn(kind, prepped=True)
             m = pair_m[pi]
-            g_op = groups[gid].op
+            mn = groups[gid].op == "min"
+            ex0 = _BIG if mn else -_BIG
+            # normal window margin: the hit shell only (8·eps) — far
+            # narrower than the march clamp; the arg-extremum the normal
+            # depends on is within epsilon of a hit.  Sound for 'max'
+            # groups too: at a hit lane owned by the group every member
+            # satisfies d_j ≤ eps — containing members can never be
+            # window-skipped and the argmax owner is inside the window.
+            w_lo, w_hi, cap, _phi, skip_lb = _pair_window(
+                pr, tile, m // CAND_UNROLL, ca, surf_clamp, t, oa, hitm)
 
-            def culled_sp(_, cand_ref=cand_ref, keys_ref=keys_ref,
-                          surf_clamp=surf_clamp,
-                          count=count, fn=fn, P=P, m=m, gid=gid,
-                          g_op=g_op, g_size=row_hi - row_lo):
-                # normal window margin: the hit shell only (8·eps, misc
-                # col 3) — far narrower than the march clamp; the arg-
-                # extremum the normal depends on is within epsilon of a
-                # hit.  Sound for 'max' (intersect) groups too: at a hit
-                # lane owned by the group every member satisfies d_j ≤
-                # eps — containing members (d_j < 0) can never be window-
-                # skipped (their bound contains the point) and the argmax
-                # owner (d ≈ 0) is inside the hit-shell window, so the
-                # windowed scan sees every candidate that can win there.
-                w_lo, w_hi, cap, _phi, skip_lb = _pair_window(
-                    keys_ref, ca, surf_clamp, t, oa, hitm,
-                    m // CAND_UNROLL)
-                mn = g_op == "min"
-                ex0 = _BIG if mn else -_BIG
+            def cand_fn(c0, k, pr=pr, kind=kind, P=P):
+                s = [pr.cand[tile, j, c0 + k] for j in range(P)]
+                return lambda x, y, z: _eval_prepped(
+                    kind, lambda j: s[j], x, y, z)
 
-                def body(cb, carry):
-                    c0 = cb * CAND_UNROLL
-                    ss, ds = [], []
-                    dext = jnp.full(shp, ex0)
-                    for k in range(CAND_UNROLL):
-                        s = tuple(cand_ref[c0 + k, j] for j in range(P))
-                        d = fn(s, px, py, pz)
-                        ss.append(s)
-                        ds.append(d)
-                        dext = jnp.minimum(dext, d) if mn \
-                            else jnp.maximum(dext, d)
-                    # gradient + select only when some hit lane actually
-                    # improves — fires for the few chunks holding the
-                    # tile's true surface owners, so the pass costs ~one
-                    # d-eval per window candidate, not a full AD sweep
-                    imp = (dext < carry[0]) if mn else (dext > carry[0])
-                    any_better = jnp.max(jnp.where(
-                        imp & hitm, 1.0, 0.0)) > 0.0
+            def body(cb, carry, cand_fn=cand_fn, mn=mn, ex0=ex0):
+                c0 = cb * CAND_UNROLL
+                fns = [cand_fn(c0, k) for k in range(CAND_UNROLL)]
+                ds = [f(px, py, pz) for f in fns]
+                dext = jnp.full(shp, ex0)
+                for d in ds:
+                    dext = jnp.minimum(dext, d) if mn \
+                        else jnp.maximum(dext, d)
+                # gradient + select only when some hit lane actually
+                # improves — fires for the few chunks holding the block's
+                # true surface owners, so the pass costs ~one d-eval per
+                # window candidate, not a full AD sweep
+                imp = (dext < carry[0]) if mn else (dext > carry[0])
+                any_better = jnp.max(jnp.where(imp & hitm, 1.0, 0.0)) > 0.0
 
-                    def upd(carry):
-                        bd, bgx, bgy, bgz = carry
-                        for k in range(CAND_UNROLL):
-                            better = ((ds[k] < bd) if mn
-                                      else (ds[k] > bd)) & hitm
-                            dv, gx, gy, gz = val_grad(fn, ss[k])
-                            bd = jnp.where(better, dv, bd)
-                            bgx = jnp.where(better, gx, bgx)
-                            bgy = jnp.where(better, gy, bgy)
-                            bgz = jnp.where(better, gz, bgz)
-                        return bd, bgx, bgy, bgz
+                def upd(carry):
+                    bd, bgx, bgy, bgz = carry
+                    for f, d in zip(fns, ds):
+                        better = ((d < bd) if mn else (d > bd)) & hitm
+                        dv, gx, gy, gz = val_grad(f)
+                        bd = jnp.where(better, dv, bd)
+                        bgx = jnp.where(better, gx, bgx)
+                        bgy = jnp.where(better, gy, bgy)
+                        bgz = jnp.where(better, gz, bgz)
+                    return bd, bgx, bgy, bgz
 
-                    return jax.lax.cond(any_better, upd,
-                                        lambda carry: carry, carry)
+                return jax.lax.cond(any_better, upd, lambda c: c, carry)
 
-                init = (jnp.full(shp, ex0), jnp.zeros(shp),
-                        jnp.zeros(shp), jnp.ones(shp))
-                bd, bgx, bgy, bgz = jax.lax.fori_loop(
-                    w_lo, w_hi, body, init)
-                if mn:
-                    # window-skipped mass lower-bounds the group min
-                    repl, rv = cap < bd, cap
-                else:
-                    # 'max' group: window-skipped chunks raise the max at
-                    # least to skip_lb, and cone-excluded members (count <
-                    # group size) to 2·eps — mirror the march's bounds so
-                    # the group value loses/wins the tree exactly like the
-                    # march's (zero-gradient there: no leaf owns it)
-                    excl = jnp.where(count < float(g_size),
-                                     2.0 * eps_v, -_BIG)
-                    floor = jnp.maximum(skip_lb, excl)
-                    repl, rv = floor > bd, floor
-                bd = jnp.where(repl, rv, bd)
-                bgx = jnp.where(repl, 0.0, bgx)
-                bgy = jnp.where(repl, 0.0, bgy)
-                bgz = jnp.where(repl, 1.0, bgz)
+            init = (jnp.full(shp, ex0), jnp.zeros(shp), jnp.zeros(shp),
+                    jnp.ones(shp))
+            bd, bgx, bgy, bgz = jax.lax.fori_loop(w_lo, w_hi, body, init)
+            if mn:
+                # window-skipped mass lower-bounds the group min
+                repl, rv = cap < bd, cap
+            else:
+                # 'max' group: window-skipped chunks raise the max at
+                # least to skip_lb, and cone-excluded members (count <
+                # group size) to 2·eps — mirror the march's bounds so the
+                # group value loses/wins the tree exactly like the march's
+                # (zero-gradient there: no leaf owns it)
+                excl = jnp.where(count < float(row_hi - row_lo),
+                                 2.0 * ctx["eps"], -_BIG)
+                floor = jnp.maximum(skip_lb, excl)
+                repl, rv = floor > bd, floor
+            bd = jnp.where(repl, rv, bd)
+            bgx = jnp.where(repl, 0.0, bgx)
+            bgy = jnp.where(repl, 0.0, bgy)
+            bgz = jnp.where(repl, 1.0, bgz)
 
-                # material argmin: the winner can be arbitrarily far from
-                # the hit (a hit on a material-less cutter surface takes
-                # the nearest visible material, SdfObject.fs:26-46), so
-                # loop over the *whole* candidate list — one march-step's
-                # worth of work, not windowed
-                n_mat = jnp.minimum(count, float(m)).astype(jnp.int32)
+            # material argmin: the winner can be arbitrarily far from the
+            # hit (a hit on a material-less cutter surface takes the
+            # nearest visible material, SdfObject.fs:26-46), so loop over
+            # the *whole* candidate list, CAND_UNROLL at a time
+            n_mat = jnp.minimum(count, float(m)).astype(jnp.int32)
 
-                def mbody(cb, carry):
-                    md_, ms_ = carry
-                    c0 = cb * CAND_UNROLL
-                    for k in range(CAND_UNROLL):
-                        s = tuple(cand_ref[c0 + k, j] for j in range(P))
-                        mat = cand_ref[c0 + k, P]
-                        d = fn(s, px, py, pz)
-                        mb = (d < md_) & (mat >= 0.0)
-                        md_ = jnp.where(mb, d, md_)
-                        ms_ = jnp.where(mb, mat, ms_)
-                    return md_, ms_
+            def mbody(cb, carry, pr=pr, kind=kind, P=P):
+                md_, ms_ = carry
+                cols = _cand_cols(pr, tile, cb * CAND_UNROLL, P + 1)
+                d = _eval_prepped(kind, lambda j: cols[j],
+                                  px[None], py[None], pz[None])
+                matc = cols[P]
+                ck = jax.lax.broadcasted_iota(jnp.int32, d.shape, 0)
+                dm = jnp.where(matc >= 0.0, d, _BIG)
+                dmm = jnp.min(dm, axis=0)
+                mfst = jnp.min(jnp.where(dm <= dmm[None], ck, CAND_UNROLL),
+                               axis=0)
+                mwin = jnp.sum(jnp.where(ck == mfst[None], matc, 0.0),
+                               axis=0)
+                mb = dmm < md_
+                return jnp.where(mb, dmm, md_), jnp.where(mb, mwin, ms_)
 
-                md_, ms_ = jax.lax.fori_loop(
-                    0, (n_mat + CAND_UNROLL - 1) // CAND_UNROLL,
-                    mbody, (md, ms))
-                return bd, bgx, bgy, bgz, md_, ms_
+            md, ms = jax.lax.fori_loop(
+                0, (n_mat + CAND_UNROLL - 1) // CAND_UNROLL, mbody, (md, ms))
+            vg[gid] = fold_vg(groups[gid].op, 0.0, vg[gid],
+                              bd, bgx, bgy, bgz)
 
-            # overflow handled host-side (see _build_kernel docstring)
-            bd, bgx, bgy, bgz, md, ms = culled_sp(0)
-            fold_vg(gid, bd, bgx, bgy, bgz)
+        for run in runs:
+            gid = run[4]
+            g = groups[gid]
 
-        if dense_mode == "scalar":
-            for (kind, s_params, gid, mat, _slot) in dense_consts:
-                fn = _scalar_fn(kind, prepped=False)
-                d, gx, gy, gz = val_grad(fn, s_params)
-                fold_vg(gid, d, gx, gy, gz)
-                if mat >= 0:
-                    mb = d < md
-                    md = jnp.where(mb, d, md)
-                    ms = jnp.where(mb, float(mat), ms)
-        else:
-            px3, py3, pz3 = px[..., None], py[..., None], pz[..., None]
-            for ci, (kind, ki, r0, rows, gs0) in enumerate(chunks):
-                params = param_refs[ki][r0:r0 + rows, :]
-                soa = _soa_fn(kind)
-                gid_chunk = gid_ref[gs0:gs0 + rows].reshape(1, 1, rows)
-                for gi, g in enumerate(groups):
-                    if not group_in_chunk[gi][ci]:
-                        continue
-                    maskc = gid_chunk == g.gid
-                    if g.op == "min":
-                        red = lambda d, maskc=maskc: jnp.min(
-                            jnp.where(maskc, d, _BIG), axis=-1)
-                    elif g.op == "max":
-                        red = lambda d, maskc=maskc: jnp.max(
-                            jnp.where(maskc, d, -_BIG), axis=-1)
-                    else:
-                        red = lambda d, k=g.k, maskc=maskc: jnp.sum(
-                            jnp.where(maskc, jnp.exp(-d / k), 0.0), axis=-1)
-                    dm, vjp = jax.vjp(
-                        lambda ax, ay, az, params=params, soa=soa, red=red:
-                        red(soa(params, ax[..., None], ay[..., None],
-                                az[..., None])),
-                        px, py, pz)
-                    gx, gy, gz = vjp(ones)
-                    if g.op == "sumexp":
-                        # vjp of Σe gives -(1/k)·Σe·g; fold expects Σe·g
-                        kk = g.k
-                        vg[gi] = [vg[gi][0] + dm, vg[gi][1] - kk * gx,
-                                  vg[gi][2] - kk * gy, vg[gi][3] - kk * gz]
-                    else:
-                        fold_vg(gi, dm, gx, gy, gz)
-                # material over this chunk
-                any_mat = any(mat_vis[gs0 + rr] >= 0 for rr in range(rows))
-                if any_mat:
-                    mats = mat_ref[gs0:gs0 + rows].reshape(1, 1, rows)
-                    d3 = soa(params, px3, py3, pz3)
-                    dmm = jnp.where(mats >= 0.0, d3, _BIG)
-                    mmin = jnp.min(dmm, axis=-1)
-                    lane = jax.lax.broadcasted_iota(
-                        jnp.int32, (1, 1, rows), 2)
-                    first = jnp.min(jnp.where(dmm <= mmin[..., None],
-                                              lane, rows), axis=-1)
-                    onehot = lane == first[..., None]
-                    mval = jnp.sum(jnp.where(onehot, mats, 0.0), axis=-1)
-                    mb = (mmin < md) & (mval >= 0.0)
-                    md = jnp.where(mb, mmin, md)
-                    ms = jnp.where(mb, mval, ms)
+            def body(carry, d_fn, slot, g=g):
+                v, md_, ms_ = carry
+                d, gx, gy, gz = val_grad(d_fn)
+                v = fold_vg(g.op, g.k, list(v), d, gx, gy, gz)
+                mat = ctx["mat"][slot]
+                mb = (d < md_) & (mat >= 0.0)
+                return (tuple(v), jnp.where(mb, d, md_),
+                        jnp.where(mb, mat, ms_))
+
+            v, md, ms = run_loop(ctx, run, body, (tuple(vg[gid]), md, ms))
+            vg[gid] = list(v)
 
         # resolve sumexp groups into (value, grad)
         gvals = []
@@ -1535,17 +1223,13 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
             if op == "subtract":
                 (va, ax, ay, az), (vb, bx, by, bz) = vals
                 sel = va > -vb
-                return (jnp.maximum(va, -vb),
-                        jnp.where(sel, ax, -bx),
-                        jnp.where(sel, ay, -by),
-                        jnp.where(sel, az, -bz))
+                return (jnp.maximum(va, -vb), jnp.where(sel, ax, -bx),
+                        jnp.where(sel, ay, -by), jnp.where(sel, az, -bz))
             if op in ("union", "intersect"):
                 out = vals[0]
                 for v in vals[1:]:
-                    if op == "union":
-                        sel = out[0] <= v[0]
-                    else:
-                        sel = out[0] >= v[0]
+                    sel = (out[0] <= v[0]) if op == "union" \
+                        else (out[0] >= v[0])
                     out = tuple(jnp.where(sel, a, b)
                                 for a, b in zip(out, v))
                 return out
@@ -1573,78 +1257,63 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
     # culled scenes add TWO per-lane axial inputs: oa = (o-apex)·axis and
     # ca = d·axis — together they give the kernel the EXACT per-lane axial
     # coordinate p_ax = oa + t·ca (see _pair_window)
-    n_ray = 9 + int(has_sign and mode == "march") + 2 * int(has_oa)
+    n_ray = 9 + int(has_sign and mode != "surface") + 2 * int(has_oa)
 
-    def _unpack(refs):
-        """Common tail unpack: params/gid/mat/pair tables + outputs.
-        Per-tile pair invariants (candidate count, cone cosine, window
-        clamps) are read from the SMEM misc table ONCE here — the v3
-        kernel re-read them from VMEM keys every march step."""
-        param_refs = refs[n_ray:n_ray + n_kinds]
-        gid_ref = refs[n_ray + n_kinds]
-        mat_ref = refs[n_ray + 1 + n_kinds]
-        pair_flat = refs[n_ray + 2 + n_kinds:
-                         n_ray + 2 + n_kinds + 4 * n_pairs]
-        pair_refs = [tuple(pair_flat[4 * i + j] for j in range(4))
-                     for i in range(n_pairs)]
-        outs = refs[n_ray + 2 + n_kinds + 4 * n_pairs:]
-        pair_consts = []
-        for (_cand, _keys, misc_ref, _hsuf) in pair_refs:
-            pair_consts.append((misc_ref[0, 0, 1],   # cos_lo
-                                misc_ref[0, 0, 2],   # march window clamp
-                                misc_ref[0, 0, 3],   # surface margin
-                                misc_ref[0, 0, 0]))  # candidate count
-        dense_consts = []
-        if dense_mode == "scalar":
-            for (kind, ki, row, gid, mat, slot) in dense_slots:
-                P = PARAM_WIDTH[kind]
-                s = tuple(param_refs[ki][row, j] for j in range(P))
-                dense_consts.append((kind, s, gid, mat, slot))
-        return (param_refs, gid_ref, mat_ref, pair_refs, pair_consts,
-                dense_consts, outs)
+    def _context(refs, eps):
+        """Scene tables + this program's culling tile and pair constants."""
+        params = refs[n_ray:n_ray + n_kinds]
+        mat = refs[n_ray + n_kinds]
+        pflat = refs[n_ray + 1 + n_kinds:n_ray + 1 + n_kinds + 4 * n_pairs]
+        pairs = [_Pair(*pflat[4 * i:4 * i + 4]) for i in range(n_pairs)]
+        tile = pl.program_id(0) // tiles_per
+        consts = [tuple(p.misc[tile, j] for j in range(4)) for p in pairs]
+        ctx = dict(params=params, mat=mat, pairs=pairs, tile=tile,
+                   consts=consts, eps=eps)
+        return ctx, refs[n_ray + 1 + n_kinds + 4 * n_pairs:]
 
     def surf_kernel(*refs):
         """One-shot surface pass at given (t, hit) points."""
         (ox, oy, oz, dxr, dyr, dzr, tt, ep, hitref) = refs[:9]
-        oa = refs[9][:, :] if has_oa else None
-        ca = refs[10][:, :] if has_oa else None
-        (param_refs, gid_ref, mat_ref, pair_refs, pair_consts,
-         dense_consts, outs) = _unpack(refs)
-        t = tt[:, :]
-        eps = ep[:, :]
-        hitm = hitref[:, :] > 0
+        oa = refs[9][...] if has_oa else None
+        ca = refs[10][...] if has_oa else None
+        eps = ep[...]
+        ctx, outs = _context(refs, eps)
+        t = tt[...]
+        hitm = hitref[...] > 0
         ts = t - eps                      # backed-off (SdfObject.fs:73)
-        px = ox[:, :] + ts * dxr[:, :]
-        py = oy[:, :] + ts * dyr[:, :]
-        pz = oz[:, :] + ts * dzr[:, :]
+        px = ox[...] + ts * dxr[...]
+        py = oy[...] + ts * dyr[...]
+        pz = oz[...] + ts * dzr[...]
         nx_out, ny_out, nz_out, mat_out, code_out = outs
-        ev = surface_eval_slot if slot_mode else surface_eval
-        gx, gy, gz, ms, code = ev(param_refs, gid_ref, mat_ref, pair_refs,
-                                  pair_consts, dense_consts,
-                                  px, py, pz, t, oa, ca, hitm, eps)
+        if slot_mode:
+            gx, gy, gz, ms, code = surface_eval_slot(ctx, px, py, pz, hitm)
+        else:
+            gx, gy, gz, ms, code = surface_eval(ctx, px, py, pz, t, oa, ca,
+                                                hitm)
         inv = jax.lax.rsqrt(gx * gx + gy * gy + gz * gz + 1e-20)
-        nx_out[:, :] = jnp.where(hitm, gx * inv, 0.0)
-        ny_out[:, :] = jnp.where(hitm, gy * inv, 0.0)
-        nz_out[:, :] = jnp.where(hitm, gz * inv, 1.0)
-        mat_out[:, :] = jnp.where(hitm, ms, -1.0).astype(jnp.int32)
-        code_out[:, :] = jnp.where(hitm, code, 0.0)
+        nx_out[...] = jnp.where(hitm, gx * inv, 0.0)
+        ny_out[...] = jnp.where(hitm, gy * inv, 0.0)
+        nz_out[...] = jnp.where(hitm, gz * inv, 1.0)
+        mat_out[...] = jnp.where(hitm, ms, -1.0).astype(jnp.int32)
+        code_out[...] = jnp.where(hitm, code, 0.0)
 
     if mode == "surface":
-        return surf_kernel, n_kinds, slot_gid, dense_mode, slot_mode
+        return surf_kernel, slot_mode
 
     occl = mode == "occlusion"
+    relaxed = omega > 1.0
 
     def kernel(*refs):
         (ox, oy, oz, dxr, dyr, dzr, ln, ep, tinit) = refs[:9]
         k = 9
         sgn = None
         if has_sign:
-            sgn = refs[k][:, :]
+            sgn = refs[k][...]
             k += 1
-        oa = refs[k][:, :] if has_oa else None
-        ca = refs[k + 1][:, :] if has_oa else None
-        (param_refs, gid_ref, mat_ref, pair_refs, pair_consts,
-         dense_consts, outs) = _unpack(refs)
+        oa = refs[k][...] if has_oa else None
+        ca = refs[k + 1][...] if has_oa else None
+        eps = ep[...]
+        ctx, outs = _context(refs, eps)
         if occl:
             # any-hit occlusion (shadow rays, SdfLight.fs:10-21): identical
             # stepping/termination → identical hit set, but no t/d outputs
@@ -1653,19 +1322,16 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
         else:
             t_out, hit_out, d_out, steps_out = outs[:4]
 
-        origin = (ox[:, :], oy[:, :], oz[:, :])       # (8, 128) each
-        direc = (dxr[:, :], dyr[:, :], dzr[:, :])
-        length = ln[:, :]
-        eps = ep[:, :]
-        t0 = tinit[:, :]
+        origin = (ox[...], oy[...], oz[...])
+        direc = (dxr[...], dyr[...], dzr[...])
+        length = ln[...]
+        t0 = tinit[...]
 
         def dist_at(t, active):
             px = origin[0] + t * direc[0]
             py = origin[1] + t * direc[1]
             pz = origin[2] + t * direc[2]
-            d, w = scene_distance(param_refs, gid_ref, pair_refs,
-                                  pair_consts, dense_consts,
-                                  px, py, pz, t, oa, ca, active, eps)
+            d, w = scene_distance(ctx, px, py, pz, t, oa, ca, active, eps)
             # per-lane sign: -1 marches *inside* the solid toward the exit
             # surface (refraction transmission).  Sound under the window
             # cap: a containing primitive's bound always contains the
@@ -1673,10 +1339,7 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
             # union min equals the true (negative) distance there.
             return (sgn * d if sgn is not None else d), w
 
-        # active/hit are carried as float 0/1 masks — Mosaic cannot yield
-        # vector<i1> from an scf.while region.
-        relaxed = omega > 1.0
-
+        # active/hit are carried as float 0/1 masks
         def cond(state):
             active, i = state[1], state[-1]
             return jnp.logical_and(jnp.max(active) > 0.0, i < max_steps)
@@ -1694,15 +1357,14 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
                 # overstep: the omega-relaxed step left the union of the
                 # two safety spheres → revert to the conservative landing
                 # point and re-evaluate there next iteration
-                over = active * jnp.where(step_taken > d_start + d,
-                                          1.0, 0.0)
+                over = active * jnp.where(step_taken > d_start + d, 1.0, 0.0)
                 ok = 1.0 - over
                 is_hit = active * ok * jnp.where(d < eps, 1.0, 0.0)
                 hit = jnp.maximum(hit, is_hit)
                 # a relaxed step that would cross the budget could kill the
                 # ray before the overstep fallback can revert it; fall back
-                # to the conservative step there (sound: if even t+d crosses,
-                # the conservative march dies at the same point)
+                # to the conservative step there (sound: if even t+d
+                # crosses, the conservative march dies at the same point)
                 step_rel = omega * d
                 step_new = jnp.where(t + step_rel >= length, d, step_rel)
                 t_cons = t - step_taken + d_start
@@ -1733,46 +1395,44 @@ def _build_kernel(kind_counts: Tuple[Tuple[str, int], ...], plan: Plan,
                 d_out_ = keep * d + (1.0 - keep) * d_out_prev
             return t_new, active, hit, d_out_, stp, wsum, i + 1
 
-        # N march steps per while iteration: the loop-carried latching +
-        # termination check cost ~3.9 µs/iteration on v5e — more than the
-        # scene evaluation itself at benchmark widths — so amortize them.
-        # Each unrolled sub-step is the unchanged masked body (inactive
-        # lanes are no-ops), so results are bit-identical; only the
-        # max_steps safety net is now honored per quantum.
-        def bodyN(state):
+        # N march steps per while iteration: each unrolled sub-step is the
+        # unchanged masked body (inactive lanes are no-ops), so results
+        # are bit-identical; only the max_steps safety net is honored per
+        # quantum.
+        def body_n(state):
             for _ in range(max(step_unroll, 1)):
                 state = body(state)
             return state
 
         active0 = jnp.where((length > 0.0) & (t0 < length), 1.0, 0.0)
-        d_init = jnp.float32(0.0) if occl else jnp.full(length.shape, _BIG)
-        stp0 = jnp.zeros_like(active0)
+        d_init = jnp.zeros(shp) if occl else jnp.full(shp, _BIG)
+        stp0 = jnp.zeros(shp)
         if relaxed:
-            init = (t0, active0, jnp.zeros_like(active0), d_init,
-                    jnp.full(length.shape, _BIG),   # d_start (no overstep)
-                    jnp.zeros_like(length),          # step_taken
+            init = (t0, active0, jnp.zeros(shp), d_init,
+                    jnp.full(shp, _BIG),   # d_start (no overstep)
+                    jnp.zeros(shp),        # step_taken
                     stp0, jnp.float32(0.0), jnp.int32(0))
-            t, _active, hit, d, _ds, _st, stp, wsum, i = \
-                jax.lax.while_loop(cond, bodyN, init)
+            t, _active, hit, d, _ds, _st, stp, wsum, _i = \
+                jax.lax.while_loop(cond, body_n, init)
         else:
-            init = (t0, active0, jnp.zeros_like(active0), d_init,
-                    stp0, jnp.float32(0.0), jnp.int32(0))
-            t, _active, hit, d, stp, wsum, i = jax.lax.while_loop(
-                cond, bodyN, init)
+            init = (t0, active0, jnp.zeros(shp), d_init, stp0,
+                    jnp.float32(0.0), jnp.int32(0))
+            t, _active, hit, d, stp, wsum, _i = jax.lax.while_loop(
+                cond, body_n, init)
 
-        hit_out[:, :] = (hit > 0.0).astype(jnp.int32)
+        hit_out[...] = (hit > 0.0).astype(jnp.int32)
         if not occl:
-            t_out[:, :] = t
-            d_out[:, :] = d
-        if debug_window or DEBUG_WINDOW_STATS:
-            steps_out[:, :] = jnp.full(length.shape, wsum, jnp.float32) \
-                .astype(jnp.int32)
+            t_out[...] = t
+            d_out[...] = d
+        if debug_window:
+            # summed per-step window width of this program's block
+            steps_out[...] = jnp.full(shp, wsum).astype(jnp.int32)
         else:
             # per-lane march-eval count (the step histogram in
-            # utils/profiling measures rays, not tiles; judge round 2 #10)
-            steps_out[:, :] = stp.astype(jnp.int32)
+            # utils/profiling measures rays, not blocks)
+            steps_out[...] = stp.astype(jnp.int32)
 
-    return kernel, n_kinds, slot_gid, dense_mode, slot_mode
+    return kernel, slot_mode
 
 
 def slot_surface_mode(plan: Plan) -> bool:
@@ -1785,7 +1445,8 @@ def slot_surface_mode(plan: Plan) -> bool:
 def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                      interpret: bool = False, want_surface: bool = False,
                      sign: Array | None = None, occlusion: bool = False,
-                     cone_apex: Array | None = None):
+                     cone_apex: Array | None = None,
+                     block: int | None = None):
     """March ``rays`` (flat batch [N]) with the fused Pallas kernel.
 
     ``occlusion=True`` runs the any-hit variant (identical hit set, no
@@ -1795,13 +1456,19 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     Handles the root-bound skip host-side (rays start at the per-lane entry
     parameter ``t0``; the kernel marches the *absolute* ray parameter so
     per-tile axial windows stay consistent with the original origins), pads
-    N to the ray-tile size, and reassembles a MarchResult.
+    N to the culling-tile size, and reassembles a MarchResult.
 
     ``want_surface=True`` additionally runs the fused surface pass and
-    returns ``(MarchResult, normal [N,3], material_index [N])`` — the
-    CSG-aware argmin material (SdfObject.fs:26-64) and the analytic normal
-    (in-kernel AD, replacing SdfForm.fs:106-115).  Non-differentiable
-    (gradients flow through ops.march.march's implicit-diff custom VJP).
+    returns ``(MarchResult, normal [N,3], material_index [N], code [N])``
+    — the CSG-aware argmin material (SdfObject.fs:26-64), the analytic
+    normal (replacing SdfForm.fs:106-115) and the signed winning-leaf code.
+    Non-differentiable (gradients flow through ops.march's implicit-diff
+    custom VJPs).
+
+    ``block`` is the rays per program: BLOCK_RAYS compiled, RAY_TILE
+    interpreted, unless given.  Each program's march windows span its own
+    block, so the block size moves hit points within the epsilon shell,
+    never the hit set.
     """
     assert rays.origin.ndim == 2, "pallas_march_raw wants a flat ray batch"
     n = rays.origin.shape[0]
@@ -1817,15 +1484,15 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         length = jnp.minimum(length, t_exit)
     length = jnp.where(miss0, 0.0, length)
 
-    sub = getattr(cfg, "tile_sub", 0) or ray_sub(interpret)
-    tile = sub * RAY_LANE
+    tile = RAY_TILE
+    if block is None:
+        block = RAY_TILE if interpret else BLOCK_RAYS
     pad = (-n) % tile
     npad = n + pad
     grid = npad // tile
 
     def pad1(x, fill=0.0):
-        x = jnp.pad(x, ((0, pad),), constant_values=fill)
-        return x.reshape(npad // RAY_LANE, RAY_LANE)
+        return jnp.pad(x, ((0, pad),), constant_values=fill)
 
     ox = pad1(rays.origin[:, 0])
     oy = pad1(rays.origin[:, 1])
@@ -1844,19 +1511,16 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     cull_m = cfg.cull_m if pairs else 0
 
     mat_vis = visible_materials(scene.plan, scene.prim_material)
-    kernel, n_kinds, slot_gid, _dm, slot_mode = _build_kernel(
-        scene.kind_counts, scene.plan, cfg.max_steps, PRIM_CHUNK,
-        pairs, cull_m, cfg.relax_omega,
-        "occlusion" if occlusion else "march", mat_vis,
-        has_sign=sign is not None,
-        debug_window=getattr(cfg, "debug_window_stats", False),
-        step_unroll=getattr(cfg, "step_unroll", 1),
-        early_out=getattr(cfg, "cull_early_out", False))
+    kernel, slot_mode = _build_kernel(
+        scene.kind_counts, scene.plan, cfg.max_steps, pairs, cull_m,
+        cfg.relax_omega, "occlusion" if occlusion else "march", mat_vis,
+        has_sign=sign is not None, debug_window=cfg.debug_window_stats,
+        step_unroll=cfg.step_unroll, early_out=cfg.cull_early_out,
+        block=block)
     sign_in = [pad1(sign, 1.0)] if sign is not None else []
 
     # per-tile candidate tables + axial window keys for each culled pair
     cull_inputs = []
-    cull_specs = []
     oa_in = []
     overflow = None
     if pairs:
@@ -1865,34 +1529,29 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         origin_p = jnp.pad(rays.origin, ((0, pad), (0, 0)))
         dir_p = jnp.pad(rays.direction, ((0, pad), (0, 0)))
         tlo_p = jnp.pad(t0, ((0, pad),))
-        thi_p = pad1(jnp.where(length > 0.0, length, t0)).reshape(-1)
+        thi_p = pad1(jnp.where(length > 0.0, length, t0))
         eps_p = jnp.pad(rays.epsilon, ((0, pad),))
         cones = _tile_cones(origin_p, dir_p, tlo_p, thi_p, eps_p, grid,
                             tile, conv_apex=cone_apex)
         # sub-cone candidacy: membership tested on 4× finer sub-tiles
         # (less origin/direction spread → tighter wedges → fewer
         # candidates, especially for shadow tiles whose origins span the
-        # surface) and OR-ed per marching tile; windows/keys stay in the
+        # surface) and OR-ed per culling tile; windows/keys stay in the
         # tile frame.  Sound: excluded ⟹ > margin ≥ 2·eps from every
         # reachable point of every sub-tile ⟹ of the tile.
         SUBF = 4
-        cones_f = None
-        if tile % SUBF == 0 and (tile // SUBF) % RAY_LANE == 0:
-            cones_f = _tile_cones(origin_p, dir_p, tlo_p, thi_p, eps_p,
-                                  grid * SUBF, tile // SUBF,
-                                  conv_apex=cone_apex)
+        cones_f = _tile_cones(origin_p, dir_p, tlo_p, thi_p, eps_p,
+                              grid * SUBF, tile // SUBF,
+                              conv_apex=cone_apex)
         # per-lane exact axial coordinates: origin offset (o - apex)·axis
         # plus direction cosine d·axis — the kernel's per-step windows use
         # p_ax = oa + t·ca exactly per lane, so neither origin spread nor
         # direction divergence (shadow tiles!) widens the windows
         oa_in = [
-            jnp.sum((origin_p.reshape(grid, tile, 3)
-                     - cones.apex[:, None, :])
-                    * cones.axis[:, None, :], axis=-1
-                    ).reshape(npad // RAY_LANE, RAY_LANE),
-            jnp.sum(dir_p.reshape(grid, tile, 3)
-                    * cones.axis[:, None, :], axis=-1
-                    ).reshape(npad // RAY_LANE, RAY_LANE),
+            dot(origin_p.reshape(grid, tile, 3) - cones.apex[:, None, :],
+                cones.axis[:, None, :]).reshape(npad),
+            dot(dir_p.reshape(grid, tile, 3),
+                cones.axis[:, None, :]).reshape(npad),
         ]
         # skipped-candidate distance floor: must exceed the hit shell
         clamp_eff = jnp.maximum(jnp.float32(cfg.cull_window_clamp),
@@ -1903,11 +1562,9 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
             kparams = jax.lax.stop_gradient(
                 scene.prim_params[kind][row_lo:row_hi])
             kb = _sdf._prim_bound_rows(kind, kparams)
-            cmask = None
-            if cones_f is not None:
-                cmask = jnp.any(
-                    _cand_mask(kb, cones_f, cone_apex is not None)
-                    .reshape(grid, SUBF, -1), axis=1)
+            cmask = jnp.any(
+                _cand_mask(kb, cones_f, cone_apex is not None)
+                .reshape(grid, SUBF, -1), axis=1)
             sel = _cone_candidates(kb, cones, m,
                                    converging=cone_apex is not None,
                                    cand=cmask)
@@ -1936,102 +1593,80 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                  for r in range(row_lo, row_hi)], np.float32)
             slots_np = np.arange(offsets[kind] + row_lo,
                                  offsets[kind] + row_hi, dtype=np.float32)
+            # parameter-major table [G, P+2, m]: one chunk of one row is a
+            # contiguous CAND_UNROLL-wide load
             table = jnp.concatenate(
-                [prepped[sel.idx],                           # [G, m, P]
-                 jnp.asarray(mats_np)[sel.idx][..., None],   # [G, m, 1]
-                 jnp.asarray(slots_np)[sel.idx][..., None]],  # global slot
-                axis=-1)
-            pw = table.shape[-1]
-            # chunk-granular window keys (see _pair_window): per
-            # CAND_UNROLL chunk, the max far edge and min near edge
-            lo_c = jnp.max(sel.lo_key.reshape(grid, -1, CAND_UNROLL),
+                [prepped.T[:, sel.idx],                          # [P, G, m]
+                 jnp.asarray(mats_np)[sel.idx][None],            # material
+                 jnp.asarray(slots_np)[sel.idx][None]],          # slot
+                axis=0).transpose(1, 0, 2)
+            # chunk-granular window keys (see _pair_window): per chunk the
+            # max far edge and min near edge, padded to a power of two
+            nch = m // CAND_UNROLL
+            wpad = _pow2(nch) - nch
+            lo_c = jnp.max(sel.lo_key.reshape(grid, nch, CAND_UNROLL),
                            axis=-1)
-            hi_c = jnp.min(sel.hi_key.reshape(grid, -1, CAND_UNROLL),
+            hi_c = jnp.min(sel.hi_key.reshape(grid, nch, CAND_UNROLL),
                            axis=-1)
-            keys = jnp.stack([lo_c, hi_c], axis=1)   # [G, 2, m/CU]
-            # per-tile invariants, one SMEM row: count, cos_lo, march
-            # window clamp, surface window margin (hit shell only).
-            # Leading unit axis: Pallas requires the LAST TWO block dims
-            # to be tile-aligned or full — [G, 1, 4] blocks as (1, 1, 4).
+            keys = jnp.pad(jnp.stack([lo_c, hi_c], axis=1),
+                           ((0, 0), (0, 0), (0, wpad)),
+                           constant_values=_BIG)            # [G, 2, NCH]
+            # per-tile invariants: count, cos_lo, march window clamp,
+            # surface window margin (hit shell only)
             misc = jnp.stack(
                 [sel.count.astype(jnp.float32), cones.cos_lo, clamp_eff,
-                 8.0 * cones.eps_max + 1e-3], axis=1)[:, None, :]
+                 8.0 * cones.eps_max + 1e-3], axis=1)       # [G, 4]
             # per-chunk suffix-min of hi_key — the running-min early-out
-            # bound (see culled_pass), scalar-read per chunk from SMEM
+            # bound (see scene_distance)
             suf = jax.lax.cummin(sel.hi_key[:, ::-1], axis=1)[:, ::-1]
-            hsuf = suf[:, None, ::CAND_UNROLL]   # [G, 1, m // CAND_UNROLL]
-            cull_inputs.append(table.reshape(grid * m, pw))
-            cull_inputs.append(keys)                         # [G, 2, m]
-            cull_inputs.append(misc)
-            cull_inputs.append(hsuf)
-            table_space = pltpu.SMEM if SCALAR_CAND else pltpu.VMEM
-            cull_specs.append(pl.BlockSpec(
-                (m, pw), lambda i: (i, 0), memory_space=table_space))
-            cull_specs.append(pl.BlockSpec(
-                (1, 2, m // CAND_UNROLL), lambda i: (i, 0, 0),
-                memory_space=pltpu.VMEM))
-            cull_specs.append(pl.BlockSpec(
-                (1, 1, 4), lambda i: (i, 0, 0), memory_space=pltpu.SMEM))
-            cull_specs.append(pl.BlockSpec(
-                (1, 1, m // CAND_UNROLL), lambda i: (i, 0, 0),
-                memory_space=pltpu.SMEM))
+            hsuf = jnp.pad(suf[:, ::CAND_UNROLL], ((0, 0), (0, wpad)),
+                           constant_values=_BIG)            # [G, NCH]
+            cull_inputs += [table, keys, misc, hsuf]
 
-    ray_spec = pl.BlockSpec((sub, RAY_LANE), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    param_specs = [pl.BlockSpec(memory_space=pltpu.VMEM)
-                   for _ in range(n_kinds + 2)]  # +gid table, +mat table
-
-    rows = npad // RAY_LANE
-    f32 = jnp.float32
-    if occlusion:
-        out_shape = [jax.ShapeDtypeStruct((rows, RAY_LANE), jnp.int32)] * 2
-        out_specs = [ray_spec] * 2
-    else:
-        out_shape = [
-            jax.ShapeDtypeStruct((rows, RAY_LANE), f32),           # t
-            jax.ShapeDtypeStruct((rows, RAY_LANE), jnp.int32),     # hit
-            jax.ShapeDtypeStruct((rows, RAY_LANE), f32),           # d
-            jax.ShapeDtypeStruct((rows, RAY_LANE), jnp.int32),     # steps
-        ]
-        out_specs = [ray_spec] * 4
-
+    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    whole = pl.BlockSpec()
     params = [jax.lax.stop_gradient(scene.prim_params[k])
               for k, _ in scene.kind_counts]
-    gid_in = jnp.asarray(slot_gid)
     mat_in = jnp.asarray(np.asarray(mat_vis, np.float32))
-    # scoped-VMEM headroom over Mosaic's 16 MB default (in-kernel AD
-    # residuals in the surface pass; big candidate tables); v5e has 128 MB
-    cparams = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
+    tables = [*params, mat_in, *cull_inputs]
+    table_specs = [whole] * len(tables)
+    programs = npad // block
+    cparams = pl_triton.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
+    f32, i32 = jnp.float32, jnp.int32
+    if occlusion:
+        out_shape = [jax.ShapeDtypeStruct((npad,), i32)] * 2
+    else:
+        out_shape = [jax.ShapeDtypeStruct((npad,), dt)
+                     for dt in (f32, i32, f32, i32)]   # t, hit, d, steps
     n_ray = 9 + len(sign_in) + len(oa_in)
     outs = pl.pallas_call(
         kernel,
-        grid=(grid,),
-        in_specs=[ray_spec] * n_ray + param_specs + cull_specs,
-        out_specs=out_specs,
+        grid=(programs,),
+        in_specs=[ray_spec] * n_ray + table_specs,
+        out_specs=[ray_spec] * len(out_shape),
         out_shape=out_shape,
         interpret=interpret,
         compiler_params=cparams,
-    )(ox, oy, oz, dxx, dyy, dzz, ln, ep, t0p, *sign_in, *oa_in, *params,
-      gid_in, mat_in, *cull_inputs)
+        backend="triton",
+        name="fray_occlusion" if occlusion else "fray_march",
+    )(ox, oy, oz, dxx, dyy, dzz, ln, ep, t0p, *sign_in, *oa_in, *tables)
 
     if overflow is not None:
         # a tile's conservative candidate count exceeded its table: the
-        # kernel's windows would be unsound for that frame.  Fall back to
-        # the SAME pallas pipeline with full-group candidate tables (the
-        # recursive call has m >= every group so its own cond vanishes) —
-        # exact, lazily evaluated inside the cond branch, and far cheaper
-        # to compile than the dense lax.map march it replaces (which cost
-        # ~370 s of XLA compile at the benchmark structure)
-        import dataclasses as _dc
+        # kernel's windows would be unsound for that frame.  Re-march with
+        # full-group candidate tables (the recursive call has m >= every
+        # group so its own cond vanishes) — exact, lazily evaluated inside
+        # the cond branch, and the same kernel as the fast path
         max_group = max(r1 - r0 for (_g, _k, _ki, r0, r1) in pairs)
-        cfg_big = _dc.replace(cfg, cull_m=max_group,
-                              cull_m_shadow=max_group)
+        cfg_big = dataclasses.replace(cfg, cull_m=max_group,
+                                      cull_m_shadow=max_group)
 
         def _big_fallback(_):
             out = pallas_march_raw(scene, rays, cfg_big, interpret,
                                    want_surface=want_surface, sign=sign,
-                                   occlusion=occlusion, cone_apex=cone_apex)
+                                   occlusion=occlusion, cone_apex=cone_apex,
+                                   block=block)
             if occlusion:
                 return out
             if not want_surface:
@@ -2043,57 +1678,41 @@ def pallas_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         _big_fallback = None
 
     if occlusion:
-        hit = outs[0].reshape(npad)[:n].astype(bool) & ~miss0
+        hit = outs[0][:n].astype(bool) & ~miss0
         if _big_fallback is not None:
-            hit = jax.lax.cond(overflow, _big_fallback,
-                               lambda _: hit, None)
+            hit = jax.lax.cond(overflow, _big_fallback, lambda _: hit, None)
         return hit
 
-    t_k, hit_k, d_k, steps_k = [o.reshape(npad)[:n] for o in outs[:4]]
+    t_k, hit_k, d_k, steps_k = [o[:n] for o in outs[:4]]
     hit = hit_k.astype(bool) & ~miss0
     fast = (t_k, hit, d_k, steps_k)
 
     if want_surface:
-        # one-shot surface pass in its own (small) Mosaic program — see
+        # one-shot surface pass in its own (small) program — see the
         # _build_kernel docstring for why it is not fused into the march
-        surf_kernel, _, _, _, _ = _build_kernel(
-            scene.kind_counts, scene.plan, cfg.max_steps, PRIM_CHUNK,
-            pairs, cull_m, cfg.relax_omega, "surface", mat_vis,
-            has_sign=False)
-        cull_specs_surf = cull_specs
-        if not slot_mode and not SCALAR_CAND:
-            # the AD-mode surface pass keeps the scalar candidate loop
-            # (per-candidate vjp) → its call wants the table in SMEM
-            cull_specs_surf = [
-                pl.BlockSpec(sp.block_shape, sp.index_map,
-                             memory_space=pltpu.SMEM)
-                if i % 4 == 0 else sp
-                for i, sp in enumerate(cull_specs)]
-        s_shape = [jax.ShapeDtypeStruct((rows, RAY_LANE), f32)] * 3 \
-            + [jax.ShapeDtypeStruct((rows, RAY_LANE), jnp.int32)] \
-            + [jax.ShapeDtypeStruct((rows, RAY_LANE), f32)]  # leaf code
-        s_specs = [ray_spec] * 5
+        surf_kernel, _ = _build_kernel(
+            scene.kind_counts, scene.plan, cfg.max_steps, pairs, cull_m,
+            cfg.relax_omega, "surface", mat_vis, block=block)
+        s_shape = [jax.ShapeDtypeStruct((npad,), dt)
+                   for dt in (f32, f32, f32, i32, f32)]  # normal, mat, code
         souts = pl.pallas_call(
             surf_kernel,
-            grid=(grid,),
-            in_specs=[ray_spec] * (9 + len(oa_in)) + param_specs
-            + cull_specs_surf,
-            out_specs=s_specs,
+            grid=(programs,),
+            in_specs=[ray_spec] * (9 + len(oa_in)) + table_specs,
+            out_specs=[ray_spec] * len(s_shape),
             out_shape=s_shape,
             interpret=interpret,
             compiler_params=cparams,
-        )(ox, oy, oz, dxx, dyy, dzz, outs[0], ep, outs[1],
-          *oa_in, *params, gid_in, mat_in, *cull_inputs)
-        nx, ny, nz = [o.reshape(npad)[:n] for o in souts[0:3]]
-        midx = souts[3].reshape(npad)[:n]
-        code = souts[4].reshape(npad)[:n]
+            backend="triton",
+            name="fray_surface",
+        )(ox, oy, oz, dxx, dyy, dzz, outs[0], ep, outs[1], *oa_in, *tables)
+        nx, ny, nz, midx, code = [o[:n] for o in souts]
         fast = fast + (nx, ny, nz, jnp.where(hit, midx, -1), code)
 
     if _big_fallback is not None:
         # see the occlusion-path comment: exact full-table re-march in the
         # rarely-taken branch; costs nothing when cull_m is sized right
-        fast = jax.lax.cond(overflow, _big_fallback,
-                            lambda _: fast, None)
+        fast = jax.lax.cond(overflow, _big_fallback, lambda _: fast, None)
 
     res = MarchResult(hit=fast[1], t=fast[0], distance=fast[2],
                       steps=fast[3])

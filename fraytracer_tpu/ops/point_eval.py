@@ -89,9 +89,8 @@ def _soa_eval(kind: str, params: Array, q: Array) -> Array:
     """Candidate distances without [..., 3]-minor intermediates.
 
     ``params [..., m, P]``, ``q [..., T, 3]`` → ``[..., T, m]``.  The AoS
-    formulation materializes [..., T, m, 3] intermediates, which TPU
-    tiling pads 3 → 128 lanes — a 43× memory blowup that OOM'd the
-    benchmark's fwd+bwd at compile time.  Reuses the march kernel's
+    formulation materializes [..., T, m, 3] intermediates, whose minor
+    axis of 3 pads badly in device layouts.  Reuses the march kernel's
     accessor-style distance math."""
     from .pallas.march_kernel import _GEN_FNS
     qx = q[..., 0][..., None]

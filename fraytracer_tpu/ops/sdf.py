@@ -1,10 +1,10 @@
 """Batched SDF evaluation over flattened scenes.
 
-TPU-native replacement for the reference's closure-tree distance evaluation
+Batched replacement for the reference's closure-tree distance evaluation
 (``SdfForm.fs``).  Every function here is shape-polymorphic over a leading
 batch of query points ``p [..., 3]`` and vectorizes over *all* primitives of
 each type at once: a single scene evaluation is a handful of large
-elementwise VPU ops + masked reductions, which XLA fuses into the march loop.
+elementwise ops + masked reductions, which XLA fuses into the march loop.
 
 Key entry points:
 
@@ -35,7 +35,7 @@ _BIG = 3.0e38  # effectively +inf in float32 without overflowing arithmetic
 
 # ---------------------------------------------------------------------------
 # Per-kind distance functions.  params: [K, P], p: [..., 3]  ->  [..., K]
-# Each is an original TPU-friendly formulation (branch-free, where-based) of
+# Each is an original vector-friendly formulation (branch-free, where-based) of
 # the classic SDFs; reference semantics cited per function.
 # ---------------------------------------------------------------------------
 
@@ -52,7 +52,7 @@ def _d_capsule(params: Array, p: Array) -> Array:
     pa = p[..., None, :] - a            # [..., K, 3]
     ba = b - a                          # [K, 3]
     denom = jnp.maximum(dot(ba, ba), 1e-20)
-    h = jnp.clip(jnp.sum(pa * ba, axis=-1) / denom, 0.0, 1.0)
+    h = jnp.clip(dot(pa, ba) / denom, 0.0, 1.0)
     return norm(pa - h[..., None] * ba) - r
 
 
@@ -64,7 +64,7 @@ def _d_torus(params: Array, p: Array) -> Array:
     R, r = params[:, 6], params[:, 7]
     n = normalize(n)
     q = p[..., None, :] - c
-    h = jnp.sum(q * n, axis=-1)                      # signed dist to plane
+    h = dot(q, n)                                    # signed dist to plane
     radial = norm(q - h[..., None] * n) - R          # dist to axis circle
     return jnp.sqrt(h * h + radial * radial + 1e-20) - r
 
@@ -83,21 +83,21 @@ def _d_triangle(params: Array, p: Array) -> Array:
     def edge_d2(e, q):
         # squared distance from q to segment along e (rooted at segment start)
         denom = jnp.maximum(dot(e, e), 1e-20)
-        h = jnp.clip(jnp.sum(q * e, axis=-1) / denom, 0.0, 1.0)
+        h = jnp.clip(dot(q, e) / denom, 0.0, 1.0)
         diff = q - h[..., None] * e
-        return jnp.sum(diff * diff, axis=-1)
+        return dot(diff, diff)
 
     d2_edges = jnp.minimum(
         edge_d2(v21, p1), jnp.minimum(edge_d2(v32, p2), edge_d2(v13, p3)))
 
     # inside test: signs of the three edge half-planes (cross(edge, nor))
-    s1 = jnp.sign(jnp.sum(jnp.cross(v21, nor) * p1, axis=-1))
-    s2 = jnp.sign(jnp.sum(jnp.cross(v32, nor) * p2, axis=-1))
-    s3 = jnp.sign(jnp.sum(jnp.cross(v13, nor) * p3, axis=-1))
+    s1 = jnp.sign(dot(jnp.cross(v21, nor), p1))
+    s2 = jnp.sign(dot(jnp.cross(v32, nor), p2))
+    s3 = jnp.sign(dot(jnp.cross(v13, nor), p3))
     inside = (s1 + s2 + s3) >= 2.0
 
     nor2 = jnp.maximum(dot(nor, nor), 1e-20)
-    h = jnp.sum(nor * p1, axis=-1)
+    h = dot(nor, p1)
     d2_face = h * h / nor2
 
     return jnp.sqrt(jnp.where(inside, d2_face, d2_edges) + 1e-20) - r
@@ -122,7 +122,7 @@ def _d_cone(params: Array, p: Array) -> Array:
     baba = jnp.maximum(dot(ba, ba), 1e-20)
     pa = p[..., None, :] - a
     papa = dot(pa, pa)
-    paba = jnp.sum(pa * ba, axis=-1) / baba
+    paba = dot(pa, ba) / baba
     x = jnp.sqrt(jnp.maximum(papa - paba * paba * baba, 1e-20))
     cax = jnp.maximum(0.0, x - jnp.where(paba < 0.5, ra, rb))
     cay = jnp.abs(paba - 0.5) - 0.5
@@ -138,7 +138,7 @@ def _d_cone(params: Array, p: Array) -> Array:
 def _d_plane(params: Array, p: Array) -> Array:
     """Half-space: dot(p, n) - offset (new primitive)."""
     n, off = params[:, 0:3], params[:, 3]
-    return jnp.sum(p[..., None, :] * n, axis=-1) - off
+    return dot(p[..., None, :], n) - off
 
 
 _DIST_FNS = {
@@ -204,7 +204,7 @@ def scene_normal(scene: FlatScene, p: Array) -> Array:
 
     Replaces the reference's forward-difference 4-tap normal
     (``SdfForm.fs:106-115``) with the exact analytic gradient via JAX AD —
-    cheaper on TPU (one reverse sweep fused into the kernel) and exact.
+    cheaper (one reverse sweep fused into the kernel) and exact.
     """
     g = jax.grad(lambda q: jnp.sum(scene_distance(scene, q)))(p)
     return normalize(g)

@@ -29,14 +29,15 @@ from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_DIRECTIONAL, LIGHT_POINT
 from ..types import Rays, SurfaceHit, dot, normalize
 from . import sdf
-from .march import (MarchConfig, march, march_occlusion,
-                    march_surface, occlusion_compacted)
+from .march import (BLOCK, MarchConfig, block_take, march,
+                    march_occlusion, march_surface, occlusion_compacted,
+                    uses_kernel)
 
 Array = jax.Array
 
 
 def resolve_material(scene: FlatScene, pos: Array, hit: Array,
-                     midx: Array, backend: str = "jnp") -> Array:
+                     midx: Array, blocks: bool = False) -> Array:
     """Repair ``midx == -1`` on *hit* lanes from the fused surface pass.
 
     The kernel's material argmin only sees the tile's cone-selected
@@ -45,16 +46,16 @@ def resolve_material(scene: FlatScene, pos: Array, hit: Array,
     reports -1 (advisor round 2, medium).  The reference's contract is a
     *global* argmin over visible material primitives (SdfObject.fs:26-46).
 
-    Repairs are tiered: none (free); on the TPU pallas path, bad lanes in
-    ≤ BCAP (8,128)-blocks → gather those blocks with the Pallas block
-    gather and dense-evaluate them (bad lanes are spatially clustered on
-    cutter surfaces, and block-granular top_k runs over n/1024 keys
-    instead of the 1M-lane top_k the lane tier pays); then ≤ CAP bad
-    lanes → lane gather; else the full dense sweep."""
+    Repairs are tiered: none (free); with ``blocks`` (the kernel paths,
+    whose rays come in screen-block order), bad lanes in ≤ BCAP blocks of
+    BLOCK rays → take those blocks and dense-evaluate them (bad lanes are
+    spatially clustered on cutter surfaces, and a block-granular top_k
+    runs over n/BLOCK keys instead of the per-lane top_k the lane tier
+    pays); then ≤ CAP bad lanes → lane gather; else the full dense
+    sweep."""
     bad = hit & (midx < 0)
     # the repair only computes an integer index — detach everything so no
-    # AD path runs through the selection (the Pallas block gather has no
-    # JVP rule, and a differentiable gather here would be wasted work)
+    # AD path runs through the selection
     flatpos = jax.lax.stop_gradient(pos).reshape(-1, 3)
     flatbad = bad.reshape(-1)
     flatm = midx.reshape(-1)
@@ -83,10 +84,7 @@ def resolve_material(scene: FlatScene, pos: Array, hit: Array,
             nbad == 0, lambda _: flatm,
             lambda _: jax.lax.cond(nbad <= CAP, capped, dense, None), None)
 
-    from .pallas.gather import BLOCK, flat_block_gather
-    interp = backend == "pallas_interpret"
-    if (backend.startswith("pallas") and n % BLOCK == 0
-            and n // BLOCK > 1):
+    if blocks and n % BLOCK == 0 and n // BLOCK > 1:
         nb = n // BLOCK
         BCAP = min(16, nb)
         anyb = jnp.any(flatbad.reshape(nb, BLOCK), axis=1)
@@ -95,7 +93,7 @@ def resolve_material(scene: FlatScene, pos: Array, hit: Array,
         def block_repair(_):
             _v, bidx = jax.lax.top_k(anyb.astype(jnp.int32), BCAP)
             bidx = bidx.astype(jnp.int32)
-            pts = flat_block_gather(flatpos, bidx, BCAP, interpret=interp)
+            pts = block_take(flatpos, bidx)
             m = sdf.material_at(scene, pts)[0].reshape(BCAP, BLOCK)
             cur = flatm.reshape(nb, BLOCK)
             badb = flatbad.reshape(nb, BLOCK)[bidx]
@@ -117,12 +115,11 @@ def surface_hit(scene: FlatScene, rays: Rays,
     ``SdfObject.tryTrace``, SdfObject.fs:66-78): position backed off by
     epsilon along the ray, analytic unit normal there, and the winning
     material's albedo (CSG-aware argmin, SdfObject.fs:26-64)."""
-    if cfg.backend.startswith("pallas") and cfg.fuse_surface:
-        # fast path: normals + material argmin fused into the march kernel
+    if uses_kernel(cfg) and cfg.fuse_surface:
+        # fast path: normals + material argmin from the surface kernel
         res, normal, midx = march_surface(scene, rays, cfg)
         pos = rays.at(res.t - rays.epsilon)
-        midx = resolve_material(scene, pos, res.hit, midx,
-                                backend=cfg.backend)
+        midx = resolve_material(scene, pos, res.hit, midx, blocks=True)
         albedo = sdf.albedo_of(scene, jnp.maximum(midx, 0), pos)
         return SurfaceHit(hit=res.hit, position=pos, normal=normal,
                           color=albedo, material=midx, t=res.t)
@@ -132,7 +129,7 @@ def surface_hit(scene: FlatScene, rays: Rays,
     # normalFromRay (SdfForm.fs:114-115).
     pos = rays.at(res.t - rays.epsilon)
     out = None
-    if cfg.cull and cfg.backend.startswith("pallas"):
+    if cfg.cull and uses_kernel(cfg):
         # big-scene fast path: normals/materials over per-tile candidate
         # lists instead of every primitive (ops/point_eval.py)
         from .point_eval import culled_surface_eval
@@ -176,10 +173,10 @@ def shade(scene: FlatScene, rays: Rays, hit: SurfaceHit,
     """Shade a batch of surface hits → linear RGB ``[..., 3]``.
 
     Shadow rays march per light, in the pixel-tile order of the primary
-    rays.  (Measured dead ends on the benchmark: batching all lights into
-    one kernel call serializes against its own candidate prep, +68 ms;
-    re-tiling shadow rays by hit-point Morton locality costs more in
-    sorts/gathers and mixed tiles than it saves in cull width, +47 ms.)
+    rays.  (Dead ends tried on the benchmark: batching all lights into
+    one kernel call serializes against its own candidate prep; re-tiling
+    shadow rays by hit-point Morton locality costs more in sorts/gathers
+    and mixed tiles than it saves in cull width.)
     """
     return shade_with_stats(scene, rays, hit, cfg)[0]
 
@@ -214,7 +211,7 @@ def shade_with_stats(scene: FlatScene, rays: Rays, hit: SurfaceHit,
         else:
             apex = None
             akey = dot(hit.position, ldir)     # ldir constant per lane
-        if cfg.shadow_compact and cfg.backend.startswith("pallas"):
+        if cfg.shadow_compact and uses_kernel(cfg):
             occluded = occlusion_compacted(scene, shadow_rays, facing, cfg,
                                            cone_apex=apex, axial_key=akey)
         else:

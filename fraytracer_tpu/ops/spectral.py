@@ -59,7 +59,7 @@ def bin_rgb(wl: Array) -> Array:
 def cauchy_ior(ior_ab: Array, wl: Array) -> Array:
     """Dispersive refractive index n(λ) = A + B/λ² (λ in µm).
 
-    ``ior_ab [..., 2]`` are per-material Cauchy coefficients (the TPU-side
+    ``ior_ab [..., 2]`` are per-material Cauchy coefficients (the device-side
     realization of the reference's refraction-index catalogue,
     Materials.fs:6-60); ``wl [...]`` are bin indices.
     """
@@ -86,7 +86,9 @@ def fresnel(direction: Array, normal: Array, n1: Array, n2: Array):
     eta = n1 / n2
     sin2t = eta * eta * jnp.maximum(1.0 - cosi * cosi, 0.0)
     tir = sin2t > 1.0
-    cost = jnp.sqrt(jnp.maximum(1.0 - sin2t, 0.0))
+    # floored above 0: sqrt's derivative at 0 is infinite, and the
+    # clamp's zero cotangent times it is NaN on every TIR lane
+    cost = jnp.sqrt(jnp.maximum(1.0 - sin2t, 1e-12))
 
     rs = ((n1 * cosi - n2 * cost) / (n1 * cosi + n2 * cost + 1e-12)) ** 2
     rp = ((n2 * cosi - n1 * cost) / (n2 * cosi + n1 * cost + 1e-12)) ** 2

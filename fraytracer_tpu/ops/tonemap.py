@@ -4,7 +4,7 @@ Vectorized re-expression of the reference's output pipeline
 (``Image.toColors``, Image.fs:37-50 + ``FColor.fs:43-55``):
 
 * auto-exposure: divide by the global max channel, clamped ≥ 0.01
-  (Image.fs:40-43) — on TPU this is one ``jnp.max`` reduction; across chips
+  (Image.fs:40-43) — on one device this is one ``jnp.max`` reduction; across chips
   it is an ``all-reduce max`` (see ``parallel/``), the one real sync point
   in the pipeline (SURVEY.md §3.3),
 * gamma: per-channel ``pow(c, 1/γ)`` (FColor.gammaInverse, FColor.fs:50-55),

@@ -2,7 +2,7 @@
 
 This realizes the reference's "materials may create subsequent rays" design
 goal (``README.md:10-12``) — whose only realized instance is the shadow-ray
-recursion in ``SdfLight.fs:10-21`` — as a TPU-native **iterative wavefront**
+recursion in ``SdfLight.fs:10-21`` — as an **iterative wavefront**
 (SURVEY.md §5 "long-context analog", BASELINE config 4: depth-4 bounce queue):
 
 * a fixed-capacity flat ray buffer (structure-of-arrays) replaces recursion;
@@ -27,19 +27,19 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..scene.flatten import FlatScene
 from ..scene.nodes import MAT_DIELECTRIC, MAT_MIRROR, MAT_SOLID
-from ..types import Rays, dot, normalize
+from ..types import Rays, dot, normalize, pytree_dataclass
 from . import sdf, spectral
-from .march import MarchConfig, march, march_occlusion, march_surface
-from .shade import light_dir_and_dist
+from .march import (BLOCK, MarchConfig, block_take, march_occlusion,
+                    march_surface, resolve_backend, uses_kernel)
+from .shade import light_dir_and_dist, resolve_material
 
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class RayQueue:
     """Fixed-capacity wavefront ray buffer (SoA).  ``pixel`` indexes the
     flat image; ``wl`` is the wavelength-bin index; ``throughput`` the
@@ -72,10 +72,9 @@ class WavefrontConfig:
     # candidate-table slots for bounce-round marches AND their shadow
     # occlusions: secondary tiles diverge until the cone test collapses
     # to a bounding ball, so conservative counts approach the group size
-    # — sized so the dense-fallback cond can never fire mid-frame (the
-    # camera-path cull_m_shadow was retuned to 512 in round 5, which
-    # silently put bounce rounds on the ~25 ms dense fallback: spectral
-    # 1.47 → 2.77 s until this field split the two)
+    # — sized so the full-table re-march never fires mid-frame (sharing
+    # cull_m_shadow with the camera path once put every bounce round on
+    # that re-march)
     bounce_cull_m: int = 1024
 
 
@@ -91,6 +90,25 @@ def block_compact_key(klass: Array, block: int) -> Array:
     blocks the drop discarded dense active blocks (advisor r4 low)."""
     w = 2 - klass.reshape(-1, block)
     return -jnp.sum(w, axis=1)
+
+
+def compact_queue(both: RayQueue, klass: Array, capacity: int,
+                  blocks: bool) -> RayQueue:
+    """Compact the 2C child buffer ``both`` to ``capacity`` lanes by the
+    stable three-class partition ``klass`` (see ``_bounce``).
+
+    ``blocks`` (the compiled-kernel path) keeps whole BLOCK-ray blocks,
+    ranked by :func:`block_compact_key`, in their original order among
+    equals — children stay in screen-block order, so the march kernel's
+    per-tile cones keep working across bounces.  A kept block may carry
+    dead lanes (they march as no-ops); on overflow the densest active
+    blocks are kept.  Otherwise the partition is applied per lane."""
+    if blocks and capacity % BLOCK == 0:
+        keep = jnp.argsort(block_compact_key(klass, BLOCK),
+                           stable=True)[:capacity // BLOCK]
+        return jax.tree.map(lambda x: block_take(x, keep), both)
+    order = jnp.argsort(klass, stable=True)[:capacity]
+    return jax.tree.map(lambda x: x[order], both)
 
 
 def _shade_local(scene: FlatScene, pos: Array, normal: Array,
@@ -149,9 +167,8 @@ def _bounce(scene: FlatScene, q: RayQueue, image: Array,
     # Surface frame at hits (backed off by epsilon, SdfObject.fs:73)
     pos = rays.at(res.t - eps)
     # repair culled-argmin material misses on cutter surfaces (shade.py)
-    from .shade import resolve_material
     midx = jnp.maximum(resolve_material(scene, pos, hit, midx,
-                                        backend=cfg.march.backend), 0)
+                                        blocks=uses_kernel(cfg.march)), 0)
     albedo = sdf.albedo_of(scene, midx, pos)
     mat_kind = jnp.asarray(np.asarray(scene.mat_kind, np.int32))[midx]
 
@@ -245,32 +262,13 @@ def _bounce(scene: FlatScene, q: RayQueue, image: Array,
                         child_a, child_b)
     low = both.active & (both.throughput < cfg.overflow_drop_threshold)
     klass = (~both.active).astype(jnp.int32) * 2 + low.astype(jnp.int32)
-    from .pallas.gather import BLOCK, flat_block_gather
-    if (cfg.march.backend == "pallas" and C % BLOCK == 0):
-        # TPU fast path: the same partition at (8,128)-block granularity,
-        # applied with the DMA-speed Pallas gather — XLA's element-level
-        # gather of the 2C queue costs ~25 ms per field (≈300 ms/round);
-        # this runs at HBM bandwidth.  A kept block may carry some dead
-        # lanes (they march as no-ops); on overflow the DENSEST active
-        # blocks are kept (energy-count key, see block_compact_key) — the
-        # same bounded-energy drop policy, one granularity coarser.
-        blockk = block_compact_key(klass, BLOCK)
-        keep = jnp.argsort(blockk, stable=True)[:C // BLOCK] \
-            .astype(jnp.int32)
-        nb = C // BLOCK
-
-        def g(x):
-            if x.dtype == jnp.bool_:
-                out = flat_block_gather(x.astype(jnp.int32), keep, nb)
-                return out.astype(jnp.bool_)
-            return flat_block_gather(x, keep, nb)
-
-        new_q = jax.tree.map(g, both)
-    else:
-        order = jnp.argsort(klass, stable=True)
-        keep = order[:C]
-        new_q = jax.tree.map(lambda x: x[keep], both)
+    new_q = compact_queue(both, klass, C, _block_compaction(cfg))
     return new_q, image, n_marched
+
+
+def _block_compaction(cfg: WavefrontConfig) -> bool:
+    """Block-granular queue compaction runs with the compiled kernel."""
+    return resolve_backend(cfg.march.backend) == "pallas"
 
 
 @partial(jax.jit, static_argnames=("width", "height", "cfg"))
@@ -291,7 +289,6 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     while dielectric scenes exercise the full README.md:7 optics.
     """
     from ..camera import camera_rays  # local import to avoid cycle
-    from .shade import resolve_material
 
     base = camera_rays(camera, width, height, cfg.epsilon, cfg.length)
     npix = width * height
@@ -299,7 +296,7 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     # screen-block ordering (pure transpose — render.py._to_blocks): the
     # march kernel's per-tile cones need spatially coherent tiles; raster
     # order makes every tile a full-width strip (measured 4× slower)
-    blocked = (cfg.march.backend.startswith("pallas")
+    blocked = (uses_kernel(cfg.march)
                and height % 32 == 0 and width % 32 == 0)
     if blocked:
         from ..render import _auto_block, _from_blocks, _to_blocks
@@ -321,7 +318,7 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     eps = rays0.epsilon
     pos = rays0.at(res.t - eps)
     midx = jnp.maximum(resolve_material(scene, pos, hit, midx,
-                                        backend=cfg.march.backend), 0)
+                                        blocks=uses_kernel(cfg.march)), 0)
     albedo = sdf.albedo_of(scene, midx, pos)
     mat_kind = jnp.asarray(np.asarray(scene.mat_kind, np.int32))[midx]
 
@@ -406,30 +403,12 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     child_b = mk(b_origin, refr_dir, refr_T, b_act,
                  jnp.ones((B * npix,), bool))
 
-    # compact 2·B·npix → C = B·npix (same 3-class partition as _bounce,
-    # block-granular on the TPU fast path)
+    # compact 2·B·npix → C = B·npix (same 3-class partition as _bounce)
     both = jax.tree.map(lambda a, b: jnp.concatenate([a, b], axis=0),
                         child_a, child_b)
     low = both.active & (both.throughput < cfg.overflow_drop_threshold)
     klass = (~both.active).astype(jnp.int32) * 2 + low.astype(jnp.int32)
-    C = B * npix
-    from .pallas.gather import BLOCK, flat_block_gather
-    if cfg.march.backend == "pallas" and C % BLOCK == 0:
-        # same density-based overflow policy as _bounce (advisor r4 low)
-        blockk = block_compact_key(klass, BLOCK)
-        keep = jnp.argsort(blockk, stable=True)[:C // BLOCK] \
-            .astype(jnp.int32)
-
-        def g(x):
-            if x.dtype == jnp.bool_:
-                return flat_block_gather(x.astype(jnp.int32), keep,
-                                         C // BLOCK).astype(jnp.bool_)
-            return flat_block_gather(x, keep, C // BLOCK)
-
-        q = jax.tree.map(g, both)
-    else:
-        order = jnp.argsort(klass, stable=True)
-        q = jax.tree.map(lambda x: x[order[:C]], both)
+    q = compact_queue(both, klass, B * npix, _block_compaction(cfg))
 
     for bounce in range(1, cfg.depth):
         q, image, n_m = _bounce(scene, q, image, cfg,

@@ -2,7 +2,7 @@
 
 This plays the role SURVEY.md §4 assigns to the "reference CPU
 implementation": a slow, simple, float64, per-pixel scalar implementation of
-exactly the same math as the TPU path, used as the ``allclose`` gate for
+exactly the same math as the device path, used as the ``allclose`` gate for
 images and gradients (BASELINE.md correctness target).  It deliberately
 mirrors the *semantics* of the F# reference (march loop SdfForm.fs:93-104,
 integrator SdfScene.fs:7-28, lights SdfLight.fs, camera Camera.fs:33-54 with

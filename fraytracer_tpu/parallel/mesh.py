@@ -1,6 +1,6 @@
 """Multi-chip execution: ray/pixel data parallelism over a device mesh.
 
-TPU-native replacement for the reference's entire parallelism story — a
+Device-mesh replacement for the reference's entire parallelism story — a
 shared-memory thread pool over image rows (``Array2D.Parallel.init``,
 Array2D.fs:29-38; SURVEY.md §2c).  Here the image is sharded over mesh
 devices with ``shard_map`` (rows → the ``'rays'`` axis), the scene pytree is
@@ -8,7 +8,7 @@ replicated, and the only cross-chip communication is
 
 * an ``all-reduce max`` for the auto-exposure tone map (the one real sync
   point of the pipeline, SURVEY.md §3.3), and
-* a gradient ``psum`` over ICI in the inverse-rendering training step
+* a gradient ``psum`` over the mesh in the inverse-rendering training step
   (scene parameters are replicated, so their grads are all-reduced).
 
 Multi-host runs use the same code path: ``jax.distributed.initialize()``
@@ -16,6 +16,7 @@ first, then these functions see the global device set.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import jax
@@ -23,9 +24,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import camera as cam
-from ..ops import shade
 from ..ops.march import MarchConfig
-from ..render import RenderConfig
+from ..render import RenderConfig, trace_image
 from ..scene.flatten import FlatScene
 from ..types import Rays
 
@@ -56,22 +56,31 @@ def render_sharded(scene: FlatScene, camera: cam.Camera,
 
     Scene + camera are replicated; each device traces its row block
     independently (embarrassingly parallel, like the reference's row loop —
-    but across chips over ICI instead of threads).
+    but across devices instead of threads), in the same screen blocks as
+    the one-device ``render`` (``trace_image``).
     """
     _shard_rows(mesh, cfg.height)
+    return _render_sharded_fn(cfg, mesh)(scene, camera)
 
-    def local_render(scene: FlatScene, rays: Rays) -> Array:
-        return shade.trace(scene, rays, cfg.march)
 
-    rays = cam.camera_rays(camera, cfg.width, cfg.height,
-                           cfg.epsilon, cfg.length)
-    fn = jax.shard_map(
-        local_render, mesh=mesh,
+@functools.lru_cache(maxsize=16)
+def _render_sharded_fn(cfg: RenderConfig, mesh: Mesh):
+    """The jitted sharded render for one (config, mesh): built once, so
+    repeated frames reuse the compiled program instead of tracing anew."""
+    sharded = jax.shard_map(
+        lambda s, r: trace_image(s, r, cfg), mesh=mesh,
         in_specs=(P(), P(AXIS)),
         out_specs=P(AXIS),
         check_vma=False,
     )
-    return jax.jit(fn)(scene, rays)
+
+    @jax.jit
+    def fn(scene: FlatScene, camera: cam.Camera) -> Array:
+        rays = cam.camera_rays(camera, cfg.width, cfg.height,
+                               cfg.epsilon, cfg.length)
+        return sharded(scene, rays)
+
+    return fn
 
 
 def exposure_max_sharded(image: Array, mesh: Mesh) -> Array:
@@ -168,13 +177,19 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera,
     Returns ``(image, active_counts [n_dev, depth])`` — the per-device
     live-ray count entering each round, the load-balance diagnostic.
     """
-    import jax.numpy as jnp
+    _shard_rows(mesh, height)
+    return _spectral_sharded_fn(width, height, wcfg, mesh,
+                                rebalance)(scene, camera)
 
+
+@functools.lru_cache(maxsize=16)
+def _spectral_sharded_fn(width: int, height: int, wcfg, mesh: Mesh,
+                         rebalance: bool):
+    """The jitted sharded spectral render for one configuration and mesh
+    (built once, like ``_render_sharded_fn``)."""
     from ..ops.wavefront import RayQueue, _bounce
 
-    _shard_rows(mesh, height)
     n_dev = mesh.shape[AXIS]
-    base = cam.camera_rays(camera, width, height, wcfg.epsilon, wcfg.length)
 
     def local_fn(scene: FlatScene, rays):
         h_local = rays.origin.shape[0]
@@ -212,9 +227,16 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera,
         return (image.reshape(h_local, width, 3),
                 jnp.stack(counts)[None, :])
 
-    fn = jax.shard_map(local_fn, mesh=mesh, in_specs=(P(), P(AXIS)),
-                       out_specs=(P(AXIS), P(AXIS)), check_vma=False)
-    return jax.jit(fn)(scene, base)
+    sharded = jax.shard_map(local_fn, mesh=mesh, in_specs=(P(), P(AXIS)),
+                            out_specs=(P(AXIS), P(AXIS)), check_vma=False)
+
+    @jax.jit
+    def fn(scene: FlatScene, camera: cam.Camera):
+        base = cam.camera_rays(camera, width, height, wcfg.epsilon,
+                               wcfg.length)
+        return sharded(scene, base)
+
+    return fn
 
 
 def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
@@ -223,7 +245,7 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
 
     Each step: render the current scene (rows sharded) → local L2 loss vs
     the target shard → grads w.r.t. every scene parameter → ``psum`` over
-    ICI → SGD update on the replicated scene.  Returns a jitted function
+    the mesh → SGD update on the replicated scene.  Returns a jitted function
     ``step(scene, camera, target) -> (scene', loss)``.
 
     **Gradient/communication overlap** (the north star's "grad all-reduce
@@ -234,7 +256,7 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
     emitted UNROLLED (a Python loop, not ``lax.scan`` — a scan would
     serialize round i's collective before round i+1's compute), so XLA's
     latency-hiding scheduler is free to run chunk i's all-reduce on the
-    ICI while chunk i+1's backward occupies the VPU.  The result is
+    interconnect while chunk i+1's backward computes.  The result is
     bit-reassociated but numerically equivalent to the monolithic path:
     Σ_chunks psum(g_chunk) = psum(Σ_chunks g_chunk)
     (tests/test_sharding.py asserts allclose).  Falls back to one chunk
@@ -248,7 +270,7 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
         hc = h_local // nc
 
         def chunk_loss(s: FlatScene, r_c, t_c):
-            img = shade.trace(s, r_c, cfg.march)
+            img = trace_image(s, r_c, cfg)
             return jnp.sum((img - t_c) ** 2)
 
         loss = jnp.float32(0.0)

@@ -27,7 +27,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize the multi-controller runtime.
 
-    With no arguments, JAX auto-detects cluster environments (TPU pods) and
+    With no arguments, JAX auto-detects cluster environments (e.g. SLURM) and
     failures degrade to a single-process run.  With explicit arguments the
     caller demanded a multi-process cluster, so failures (most commonly:
     the JAX backend was already initialized by an earlier array op — call
@@ -65,8 +65,9 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_mesh():
-    """1-D mesh over every device of every host (ICI within a slice, DCN
-    across hosts — XLA routes the collectives)."""
+    """1-D mesh over every device of every host (the fast interconnect
+    within a host, the network across hosts — XLA routes the
+    collectives)."""
     return make_mesh(devices=jax.devices())
 
 

@@ -19,7 +19,7 @@ import numpy as np
 
 from . import camera as cam
 from .ops import shade, tonemap
-from .ops.march import MarchConfig
+from .ops.march import MarchConfig, uses_kernel
 from .scene.flatten import FlatScene, flatten
 from .scene.nodes import Scene
 from .types import Rays
@@ -38,18 +38,15 @@ class RenderConfig:
     length: float = 30.0        # ray travel budget (Program.fs:93)
     gamma: float = 2.2          # tone-map gamma (Program.fs:99)
     march: MarchConfig = MarchConfig()
-    # Rays per on-chip tile for the *jnp* backend, whose march materializes
-    # a [tile, K] primitive distance matrix per step; tiling keeps peak HBM
-    # bounded (a 1024² image against 1000 primitives untiled would need
-    # ~4 GB per temporary).  0 → no tiling (whole image in one batch).
-    # The Pallas backend ignores this for the forward pass (its state is
-    # O(rays), tiled in-kernel) and applies it only under reverse-mode AD
-    # via tile_rays_bwd.
+    # Rays per tile for the *jnp* backend, whose march materializes a
+    # [tile, K] primitive distance matrix per step; tiling keeps peak
+    # device memory bounded (a 1024² image against 1000 primitives
+    # untiled would need ~4 GB per temporary).  0 → no tiling.
     tile_rays: int = 65536
-    # Rays per tile for the Pallas backend (both directions).  The fused
-    # kernel needs no forward tiling; the implicit-diff backward gathers
-    # [tile/1024, 1024, cull_m] candidate matrices, which 0 (untiled)
-    # keeps ~0.5 GB at 1024² — fine on a 16 GB chip.
+    # Rays per tile for the kernel backends (both directions).  The kernel
+    # needs no forward tiling (its state is O(rays)); the implicit-diff
+    # backward gathers [tile/1024, 1024, cull_m] candidate matrices, which
+    # 0 (untiled) keeps at ~0.5 GB at 1024².
     tile_rays_pallas: int = 0
 
 
@@ -90,15 +87,11 @@ def _trace_tiled(scene: FlatScene, rays: Rays, march_cfg: MarchConfig,
 
 
 def _auto_block(height: int, width: int) -> int:
-    """Screen-block edge matching the kernel's ray-tile size: one square
-    b×b block per tile (b² = ray_tile) keeps the tile's ray cone as
+    """Screen-block edge matching the kernel's culling tile: one square
+    b×b block per tile (b² = RAY_TILE) keeps the tile's ray cone as
     narrow as possible."""
-    from .ops.pallas.march_kernel import ray_tile
-    b = max(32, int(ray_tile() ** 0.5))
-    # round down to a power of two so the halving loop can always reach a
-    # divisor of power-of-two image sizes (non-square FT_RAY_SUB overrides
-    # would otherwise degrade 45 -> 2 for 1024-px images)
-    b = 1 << (b.bit_length() - 1)
+    from .ops.pallas.march_kernel import RAY_TILE
+    b = 1 << (int(RAY_TILE ** 0.5).bit_length() - 1)
     while height % b or width % b:
         b //= 2
     return max(b, 1)
@@ -108,15 +101,13 @@ def _auto_block(height: int, width: int) -> int:
 def _block_perm(height: int, width: int, b: int = 32):
     """Pixel permutation into b×b screen blocks (and its inverse).
 
-    The Pallas march culls primitives per ray tile; tiles of spatially
+    The kernel march culls primitives per ray tile; tiles of spatially
     coherent pixels (square blocks sized to the tile) have narrow ray
     cones → small candidate lists.  Row-major order would make each tile
     a thin full-width strip with a uselessly wide cone.
 
     Index form, for host tools; the jitted render path applies the same
-    permutation as reshape+transpose (``_to_blocks``/``_from_blocks``) —
-    XLA lowers a 1M-element gather near-serially, a transpose as a fast
-    vectorized copy.
+    permutation as reshape+transpose (``_to_blocks``/``_from_blocks``).
     """
     idx = np.arange(height * width).reshape(height, width)
     blocks = (idx.reshape(height // b, b, width // b, b)
@@ -141,29 +132,38 @@ def _from_blocks(x: Array, height: int, width: int, b: int) -> Array:
     return t.transpose(order).reshape((height, width) + x.shape[1:])
 
 
+def trace_image(scene: FlatScene, rays: Rays, cfg: RenderConfig) -> Array:
+    """Trace an ``[H, W]`` grid of rays → linear RGB ``[H, W, 3]``.
+
+    On the kernel path the rays march in square screen blocks, one per
+    culling tile (``_auto_block``), so each tile's cone stays narrow; a
+    row block of an image (a shard of ``render_sharded``) whose height
+    the block edge divides marches exactly the tiles the whole-image
+    render marches there."""
+    h, w = rays.origin.shape[:2]
+    pallas = uses_kernel(cfg.march)
+    blocked = pallas and h % 32 == 0 and w % 32 == 0
+    if blocked:
+        b = _auto_block(h, w)
+        flat_rays = jax.tree.map(lambda x: _to_blocks(x, h, w, b), rays)
+    else:
+        flat_rays = jax.tree.map(
+            lambda x: x.reshape((w * h,) + x.shape[2:]), rays)
+
+    tile = cfg.tile_rays_pallas if pallas else cfg.tile_rays
+    colors = _trace_tiled(scene, flat_rays, cfg.march, tile)
+    if blocked:
+        return _from_blocks(colors, h, w, b)
+    return colors.reshape(h, w, 3)
+
+
 @partial(jax.jit, static_argnames=("cfg",))
 def render(scene: FlatScene, camera: cam.Camera,
            cfg: RenderConfig = RenderConfig()) -> Array:
     """Render the full image → linear RGB float32 [H, W, 3] (row 0 = top)."""
     rays = cam.camera_rays(camera, cfg.width, cfg.height,
                            cfg.epsilon, cfg.length)
-
-    pallas = cfg.march.backend.startswith("pallas")
-    blocked = pallas and cfg.height % 32 == 0 and cfg.width % 32 == 0
-    if blocked:
-        b = _auto_block(cfg.height, cfg.width)
-        flat_rays = jax.tree.map(
-            lambda x: _to_blocks(x, cfg.height, cfg.width, b), rays)
-    else:
-        flat_rays = jax.tree.map(
-            lambda x: x.reshape((cfg.width * cfg.height,) + x.shape[2:]),
-            rays)
-
-    tile = cfg.tile_rays_pallas if pallas else cfg.tile_rays
-    colors = _trace_tiled(scene, flat_rays, cfg.march, tile)
-    if blocked:
-        return _from_blocks(colors, cfg.height, cfg.width, b)
-    return colors.reshape(cfg.height, cfg.width, 3)
+    return trace_image(scene, rays, cfg)
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -175,7 +175,7 @@ def render_with_stats(scene: FlatScene, camera: cam.Camera,
     Returns ``(image [H, W, 3], n_rays scalar f32)``."""
     rays = cam.camera_rays(camera, cfg.width, cfg.height,
                            cfg.epsilon, cfg.length)
-    pallas = cfg.march.backend.startswith("pallas")
+    pallas = uses_kernel(cfg.march)
     blocked = pallas and cfg.height % 32 == 0 and cfg.width % 32 == 0
     if blocked:
         b = _auto_block(cfg.height, cfg.width)

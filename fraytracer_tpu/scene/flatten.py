@@ -1,6 +1,6 @@
 """Scene flattening: builder tree → flat tagged parameter arrays (pytree).
 
-This is the central representational shift of the TPU build (SURVEY.md §7):
+This is the central representational shift of this build (SURVEY.md §7):
 the reference's ``SdfForm`` closure *tree* (``Types.fs:40-44``, combinators in
 ``SdfForm.fs``) becomes
 
@@ -14,9 +14,9 @@ the reference's ``SdfForm`` closure *tree* (``Types.fs:40-44``, combinators in
   the combine loop unrolls at trace time into a handful of masked reductions.
 
 The reference's two spatial-lookup grids (``SdfBoundary.fs:225-282``,
-``SdfObject.fs:26``) have no direct analog here: pruning on TPU is done with
-bounding-sphere tests *inside* the march kernels (see ``ops/``), not with
-per-query pointer-chasing grids.
+``SdfObject.fs:26``) have no direct analog here: pruning is done with
+bounding-sphere tests around and *inside* the march kernel (see ``ops/``),
+not with per-query pointer-chasing grids.
 """
 from __future__ import annotations
 
@@ -27,15 +27,15 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..types import pytree_dataclass, static_field
 from . import nodes as N
 
 __all__ = ["Plan", "FlatScene", "flatten", "KINDS", "PARAM_WIDTH"]
 
 # Canonical primitive kind order == global slot order. Primitives are grouped
 # by kind so each kind evaluates as one vectorized batch over its [K_t, P_t]
-# parameter matrix (VPU-friendly), then concatenated into the global distance
+# parameter matrix, then concatenated into the global distance
 # matrix d[..., K].
 KINDS: Tuple[str, ...] = (
     "sphere", "capsule", "torus", "triangle", "box", "cone", "plane",
@@ -64,7 +64,8 @@ class Plan:
     k: float = 0.0
 
 
-class FlatScene(struct.PyTreeNode):
+@pytree_dataclass
+class FlatScene:
     """Flattened scene: SoA parameter arrays + static topology.
 
     Dynamic leaves (differentiable): ``prim_params`` (dict kind → [K_t,P_t]),
@@ -85,11 +86,11 @@ class FlatScene(struct.PyTreeNode):
     background: jax.Array                      # [3]
 
     # --- static structure (not traced; part of the jit cache key) ---
-    plan: Plan = struct.field(pytree_node=False)
-    kind_counts: Tuple[Tuple[str, int], ...] = struct.field(pytree_node=False)
-    prim_material: Tuple[int, ...] = struct.field(pytree_node=False)  # -1 = none
-    mat_kind: Tuple[int, ...] = struct.field(pytree_node=False)       # per material
-    light_kind: Tuple[int, ...] = struct.field(pytree_node=False)
+    plan: Plan = static_field()
+    kind_counts: Tuple[Tuple[str, int], ...] = static_field()
+    prim_material: Tuple[int, ...] = static_field()   # -1 = none
+    mat_kind: Tuple[int, ...] = static_field()        # per material
+    light_kind: Tuple[int, ...] = static_field()
 
     @property
     def num_prims(self) -> int:

@@ -5,7 +5,7 @@ scene algebra (``/root/reference/src/FrayTracer/SdfForm.fs``,
 ``SdfObject.fs``).  Where the reference builds a tree of F# closures capturing
 child closures (``Types.fs:40-44``), we build a lightweight *description* tree
 of Python dataclasses; :mod:`fraytracer_tpu.scene.flatten` lowers it to flat
-tagged parameter arrays (a JAX pytree) that the TPU kernels consume.
+tagged parameter arrays (a JAX pytree) that the march kernels consume.
 
 Combinator parity with the reference:
 
@@ -225,7 +225,7 @@ def _flatten_children(op_cls, nodes: Sequence[SdfNode]) -> Tuple[SdfNode, ...]:
 
 def union(*nodes: SdfNode) -> SdfNode:
     """N-ary union (min).  Nested unions are flattened so sibling primitives
-    land in one masked-min reduction — the TPU analog of the reference's
+    land in one masked-min reduction — the batched analog of the reference's
     spatial-lookup-pruned linear min (``SdfForm.fs:14-40``)."""
     nodes = _flatten_children(Union, nodes)
     if not nodes:

@@ -1,27 +1,45 @@
-"""Core value types of the TPU-native SDF renderer.
+"""Core value types of the batched SDF renderer.
 
-TPU-first reinterpretation of the reference's domain records
+Batch-first reinterpretation of the reference's domain records
 (``/root/reference/src/FrayTracer/Types.fs:9-79``): instead of per-ray structs
 and per-scene closures, everything is a **batch**.  A ``Rays`` value holds a
 structure-of-arrays bundle of many rays at once; trace results are likewise
 batched and masked (a ``hit`` boolean replaces the F# ``voption``).
 
-All containers are registered JAX pytrees (via ``flax.struct``) so they flow
-through ``jit`` / ``grad`` / ``vmap`` / ``shard_map`` unchanged.
+All containers are registered JAX pytrees (:func:`pytree_dataclass`) so
+they flow through ``jit`` / ``grad`` / ``vmap`` / ``shard_map`` unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 Array = jax.Array
 
 
-@struct.dataclass
+def static_field(**kwargs):
+    """A :func:`pytree_dataclass` field held as static aux data (hashable,
+    part of the jit cache key) rather than as a pytree leaf."""
+    return dataclasses.field(metadata={"static": True}, **kwargs)
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree: fields made with
+    :func:`static_field` are aux data, all others are leaves.  Adds
+    ``replace(**changes)`` (``dataclasses.replace``)."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")])
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return cls
+
+
+@pytree_dataclass
 class Rays:
     """A batch of rays (structure-of-arrays).
 
@@ -63,7 +81,7 @@ def make_rays(origin, direction, length, epsilon) -> Rays:
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class MarchResult:
     """Result of sphere-tracing a batch of rays against a scene.
 
@@ -79,7 +97,7 @@ class MarchResult:
     steps: Array     # [...] int32
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceHit:
     """Shading-ready hit info (reference ``SdfObjectTraceResult``,
     ``Types.fs:57-65``): backed-off position, unit normal, surface albedo and
@@ -94,14 +112,27 @@ class SurfaceHit:
     t: Array          # [...] float32
 
 
+def sum3(v: Array) -> Array:
+    """Sum over the trailing axis, as explicit adds when it has 3 entries.
+
+    XLA's GPU compiler turns a trailing-axis reduce whose result is
+    broadcast back over the row (``v / |v|``) into a Triton normalization
+    kernel, and for 3-wide rows that kernel fails to launch on the H100
+    (CUDA_ERROR_INVALID_VALUE).  Elementwise adds never take that route;
+    they add in the reduce's order."""
+    if v.shape[-1] == 3:
+        return v[..., 0] + v[..., 1] + v[..., 2]
+    return jnp.sum(v, axis=-1)
+
+
 def dot(a: Array, b: Array) -> Array:
     """Batched 3-vector dot product over the trailing axis."""
-    return jnp.sum(a * b, axis=-1)
+    return sum3(a * b)
 
 
 def norm(v: Array, eps: float = 1e-20) -> Array:
     """Safe Euclidean norm over the trailing axis (grad-safe at 0)."""
-    return jnp.sqrt(jnp.sum(v * v, axis=-1) + eps)
+    return jnp.sqrt(sum3(v * v) + eps)
 
 
 def normalize(v: Array, eps: float = 1e-20) -> Array:

@@ -175,7 +175,7 @@ def test_fused_gradients_match_nonfused():
 
 
 def test_resolve_material_block_tier_matches_lane_tier():
-    """The TPU block-granular repair tier (pallas backends, bad lanes in
+    """The block-granular repair tier (kernel backends, bad lanes in
     ≤ BCAP blocks) must produce exactly the lane-tier / dense result —
     the global material argmin on every bad hit lane (SdfObject.fs:26-46)."""
     import jax.numpy as jnp
@@ -197,9 +197,9 @@ def test_resolve_material_block_tier_matches_lane_tier():
     bad[2100:2120] = True    # block 2
     midx = jnp.where(jnp.asarray(bad), -1, midx)
     ref = np.asarray(resolve_material(scene, pos, hit, midx,
-                                      backend="jnp"))
+                                      blocks=False))
     blk = np.asarray(resolve_material(scene, pos, hit, midx,
-                                      backend="pallas_interpret"))
+                                      blocks=True))
     np.testing.assert_array_equal(blk, ref)
     # ground truth on the repaired lanes
     m_true = np.asarray(sdf.material_at(scene, pos)[0])
@@ -208,7 +208,36 @@ def test_resolve_material_block_tier_matches_lane_tier():
     # overflow (> BCAP blocks bad) falls back to the lane tiers
     bad_all = jnp.where(jnp.asarray(np.ones(n, bool)), -1, midx)
     ref2 = np.asarray(resolve_material(scene, pos, hit, bad_all,
-                                       backend="jnp"))
+                                       blocks=False))
     blk2 = np.asarray(resolve_material(scene, pos, hit, bad_all,
-                                       backend="pallas_interpret"))
+                                       blocks=True))
     np.testing.assert_array_equal(blk2, ref2)
+
+
+def test_resolve_material_block_tier_equals_dense():
+    """The block tier repairs every bad hit lane of a kernel-layout batch
+    (whole BLOCK-ray blocks) to the dense global material argmin
+    (SdfObject.fs:26-46) and leaves every other lane untouched."""
+    import jax.numpy as jnp
+    from fraytracer_tpu.ops import sdf
+    from fraytracer_tpu.ops.march import BLOCK
+    from fraytracer_tpu.ops.shade import resolve_material
+    rng = np.random.default_rng(8)
+    scene = ft.flatten(ft.Scene(root=ft.subtract(
+        ft.union(ft.sphere((-1, 0, 0), 1.0, material=ft.solid(1, 0, 0)),
+                 ft.box((1, 0, 0), (0.7, 0.7, 0.7), 0.05,
+                        material=ft.solid(0, 0, 1))),
+        ft.sphere((0, 0, -1), 0.8))))    # material-less cutter
+    n = 8 * BLOCK
+    pos = jnp.asarray(rng.uniform(-2, 2, size=(n, 3)), jnp.float32)
+    hit = jnp.asarray(rng.uniform(size=n) > 0.3)
+    dense = np.asarray(sdf.material_at(scene, pos)[0])
+    bad = np.zeros(n, bool)
+    bad[3 * BLOCK + 7:3 * BLOCK + 300] = True   # one block
+    bad[6 * BLOCK:6 * BLOCK + 5] = True         # and another
+    midx = jnp.where(jnp.asarray(bad), -1, jnp.asarray(dense))
+    out = np.asarray(resolve_material(scene, pos, hit, midx, blocks=True))
+    fixed = np.asarray(hit) & bad
+    assert fixed.sum() > 100
+    np.testing.assert_array_equal(out[fixed], dense[fixed])
+    np.testing.assert_array_equal(out[~fixed], np.asarray(midx)[~fixed])

@@ -213,7 +213,7 @@ def test_grad_through_pallas_render_with_block_repair():
 
 
 def test_tiled_leaf_backward_matches_perlane():
-    """The MXU one-hot leaf backward (_surf_bwd_tail_tiled, live when the
+    """The one-hot leaf backward (_surf_bwd_tail_tiled, live when the
     batch tiles at 4096 lanes) must give the same scene gradients as the
     per-lane path — same formula, different select machinery (r5)."""
     import jax

@@ -173,3 +173,23 @@ def test_sharded_render_with_pallas_backend(scene, camera):
         width=16, height=32, epsilon=0.02, length=30.0,
         march=MarchConfig(max_steps=64))))
     np.testing.assert_allclose(sharded, single, atol=1e-4)
+
+
+def test_sharded_kernel_render_marches_the_single_render_tiles(scene,
+                                                               camera):
+    """On the kernel path each shard marches its rows in the whole-image
+    render's screen blocks (32-row shards of a 64² frame hold whole 32×32
+    blocks), so the sharded image is the one-device image; the jitted
+    sharded program is built once per (config, mesh)."""
+    from fraytracer_tpu.parallel.mesh import _render_sharded_fn
+    cfg = ft.RenderConfig(
+        width=64, height=64, epsilon=0.02, length=30.0,
+        march=MarchConfig(max_steps=64, backend="pallas_interpret"))
+    mesh = make_mesh(2)
+    single = np.asarray(ft.render(scene, camera, cfg))
+    assert (single > 0).any(axis=-1).mean() > 0.1
+    sharded = np.asarray(render_sharded(scene, camera, cfg, mesh))
+    np.testing.assert_allclose(sharded, single, atol=1e-6)
+    hits = _render_sharded_fn.cache_info().hits
+    render_sharded(scene, camera, cfg, mesh)
+    assert _render_sharded_fn.cache_info().hits == hits + 1

@@ -2,6 +2,7 @@
 physics, Materials.fs dispersion data)."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from fraytracer_tpu.ops import spectral
 
@@ -59,6 +60,27 @@ def test_total_internal_reflection():
                                             jnp.array([1.0]))
     assert bool(tir[0])
     np.testing.assert_allclose(float(R[0]), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("theta_deg, n1, n2", [
+    (60.0, 1.5, 1.0), (30.0, 1.0, 1.5)])
+def test_fresnel_gradients_finite(theta_deg, n1, n2):
+    """Gradients of every Fresnel output w.r.t. the direction and both
+    indices stay finite, on a total-internal-reflection lane too (the
+    refracted cosine there is clamped, not differentiated through 0)."""
+    import jax
+    theta = np.radians(theta_deg)
+    d = jnp.array([[np.sin(theta), 0.0, np.cos(theta)]], jnp.float32)
+    n = jnp.array([[0.0, 0.0, -1.0]])
+
+    def f(d, a, b):
+        R, refl, refr, _ = spectral.fresnel(d, n, a, b)
+        return jnp.sum(R) + jnp.sum(refl) + jnp.sum(refr)
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(
+        d, jnp.array([n1]), jnp.array([n2]))
+    for g in grads:
+        assert np.isfinite(np.asarray(g)).all()
 
 
 def test_snell_refraction_angle():

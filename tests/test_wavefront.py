@@ -52,6 +52,23 @@ def test_spectral_benchmark_scene_smoke():
     assert float(n) > W * H * 1.05
 
 
+def test_spectral_gradients_finite():
+    """jax.grad through the glass+mirror benchmark variant is finite and
+    reaches geometry and glass indices — including through the total
+    internal reflection lanes of the inner bounces."""
+    from fraytracer_tpu.scene.generators import spectral_csg_scene
+    scene = ft.flatten(spectral_csg_scene(seed=19, n_tori=64))
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0)
+    cfg = WavefrontConfig(depth=4, epsilon=0.01, length=30.0, march=MARCH)
+    g = jax.grad(lambda s: jnp.sum(
+        render_spectral(s, cam, 24, 24, cfg) ** 2))(scene)
+    for name, leaf in (("torus", g.prim_params["torus"]),
+                       ("ior", g.mat_ior)):
+        a = np.asarray(leaf)
+        assert np.isfinite(a).all(), name
+        assert np.abs(a).max() > 0, name
+
+
 def test_mirror_reflects_scene():
     """A mirror floor under a red sphere shows red in the reflection."""
     scene = ft.flatten(ft.Scene(
@@ -160,3 +177,53 @@ def test_block_compact_key_prefers_dense_active_blocks():
     assert order[2] == 3 and order[3] == 1 and order[4] == 4
     # fully dead block is always last
     assert np.asarray(key)[4] == 0 and (np.asarray(key)[:4] < 0).all()
+
+
+@pytest.mark.parametrize("layout", ["bounce", "first_round"])
+def test_compact_queue_blocks_match_lane_partition(layout):
+    """Block-granular queue compaction (the compiled-kernel path of
+    ``_bounce`` and of the spectral first round) keeps exactly the blocks
+    the lane partition ranks first — the ``block_compact_key`` order,
+    stable among equal keys — and moves each kept block whole."""
+    from fraytracer_tpu.ops.march import BLOCK
+    from fraytracer_tpu.ops.wavefront import (RayQueue, block_compact_key,
+                                              compact_queue)
+    rng = np.random.default_rng(0 if layout == "bounce" else 1)
+    C = 4 * BLOCK
+    if layout == "bounce":
+        # children A then B of one round: scattered survivors
+        active = rng.uniform(size=2 * C) < 0.3
+    else:
+        # first round: reflection children of every pixel, then mostly
+        # dead refraction children (pixel-major bins)
+        active = np.concatenate([rng.uniform(size=C) < 0.6,
+                                 rng.uniform(size=C) < 0.05])
+    thr = rng.uniform(0.0, 0.2, size=2 * C).astype(np.float32)
+    low = active & (thr < 0.05)
+    klass = np.where(active, low.astype(np.int32), 2).astype(np.int32)
+    lanes = np.arange(2 * C)
+    q = RayQueue(
+        origin=jnp.asarray(np.stack([lanes] * 3, -1), jnp.float32),
+        direction=jnp.zeros((2 * C, 3), jnp.float32),
+        pixel=jnp.asarray(lanes, jnp.int32),
+        wl=jnp.zeros((2 * C,), jnp.int32),
+        throughput=jnp.asarray(thr),
+        length=jnp.ones((2 * C,), jnp.float32),
+        inside=jnp.zeros((2 * C,), bool),
+        active=jnp.asarray(active))
+    out = compact_queue(q, jnp.asarray(klass), C, blocks=True)
+    # predicted: rank the 2C/BLOCK blocks by their lane-class weight,
+    # stable; keep the best C/BLOCK, in that order
+    key = np.asarray(block_compact_key(jnp.asarray(klass), BLOCK))
+    np.testing.assert_array_equal(
+        key, -(2 - klass.reshape(-1, BLOCK)).sum(axis=1))
+    keep = np.argsort(key, kind="stable")[:C // BLOCK]
+    want = (keep[:, None] * BLOCK + np.arange(BLOCK)[None]).reshape(-1)
+    np.testing.assert_array_equal(np.asarray(out.pixel), want)
+    np.testing.assert_array_equal(np.asarray(out.active), active[want])
+    np.testing.assert_array_equal(np.asarray(out.origin)[:, 0], want)
+    # the lane path keeps every class-0 lane first, in order
+    lane_out = compact_queue(q, jnp.asarray(klass), C, blocks=False)
+    first = np.where(klass == 0)[0][:C]
+    np.testing.assert_array_equal(
+        np.asarray(lane_out.pixel)[:len(first)], first)

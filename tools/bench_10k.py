@@ -8,7 +8,9 @@ host-side candidate-prep time, and the conservative candidate counts
 that size the tables (picked empirically per scene, with headroom,
 exactly as a user of the API would).
 
-Prints ONE JSON line; bench.py merges it under namespaced keys.
+``run(size, tori)`` returns the record; bench.py calls it in its own
+process (one process per card) and merges it under namespaced keys.  Run
+alone it prints ONE JSON line.
 
 Usage: python tools/bench_10k.py [size] [tori]
 """
@@ -24,25 +26,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import fraytracer_tpu as ft
 from fraytracer_tpu import camera as cam
 from fraytracer_tpu.ops import sdf as _sdf
 from fraytracer_tpu.ops.march import (MarchConfig, bound_skip_start,
-                                      march_surface)
-from fraytracer_tpu.ops.pallas.march_kernel import (CAND_UNROLL, _cand_mask,
+                                      march_surface, uses_kernel)
+from fraytracer_tpu.ops.pallas.march_kernel import (CAND_UNROLL, RAY_TILE,
+                                                    _cand_mask,
                                                     _cone_candidates,
                                                     _pair_m, _prep_rows,
-                                                    _tile_cones, ray_tile)
+                                                    _tile_cones)
 from fraytracer_tpu.ops.shade import light_dir_and_dist
 from fraytracer_tpu.render import _auto_block, _block_perm
 from fraytracer_tpu.scene.generators import torus_csg_scene
 from fraytracer_tpu.types import Rays
 
-SIZE = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
-TORI = int(sys.argv[2]) if len(sys.argv) > 2 else 10000
 K = 8
 
 
@@ -51,7 +49,7 @@ def log(msg):
 
 
 def cand_counts(scene, sh, apex):
-    tile = ray_tile()
+    tile = RAY_TILE
     grid = sh.origin.shape[0] // tile
     t0, miss0, t_exit = bound_skip_start(scene, sh)
     length = jnp.minimum(sh.length, t_exit)
@@ -73,25 +71,22 @@ def round_up(x, q=128):
     return int(-(-x // q) * q)
 
 
-def main():
-    backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    scene = ft.flatten(torus_csg_scene(seed=19, n_tori=TORI))
+def run(size: int = 1024, tori: int = 10000) -> dict:
+    scene = ft.flatten(torus_csg_scene(seed=19, n_tori=tori))
     camera = ft.look_at((0.0, 0.0, -10.0), (0.0, 0.0, 0.0),
                         fov_degrees=60.0)
-    base = MarchConfig(max_steps=192, bound_skip=True, backend=backend,
-                       relax_omega=1.4)
-    rays = cam.camera_rays(camera, SIZE, SIZE, 0.01, 30.0)
+    base = MarchConfig(max_steps=192, bound_skip=True, relax_omega=1.4)
+    rays = cam.camera_rays(camera, size, size, 0.01, 30.0)
     flat = jax.tree.map(lambda x: x.reshape((-1,) + x.shape[2:]), rays)
-    perm, _inv = _block_perm(SIZE, SIZE, _auto_block(SIZE, SIZE))
+    perm, _inv = _block_perm(size, size, _auto_block(size, size))
     flat = jax.tree.map(lambda x: x[perm], flat)
 
-    if backend != "pallas":
+    if not uses_kernel(base):
         # CPU smoke: tiny render only
         cfg = ft.RenderConfig(width=64, height=64, march=base)
         img = ft.render(scene, camera, cfg)
         jax.block_until_ready(img)
-        print(json.dumps({"tori10k_ok": True, "tori10k_backend": backend}))
-        return 0
+        return {"tori10k_ok": True, "tori10k_backend": "jnp"}
 
     # empirical table sizing with 30% headroom (a user would do the same:
     # counts are cheap host jnp; overflow falls back to the exact dense
@@ -117,7 +112,7 @@ def main():
     log(f"shadow max count {m_shadow} -> cull_m_shadow {m_sh}")
 
     mcfg = dataclasses.replace(base, cull_m=m_prim, cull_m_shadow=m_sh)
-    cfg = ft.RenderConfig(width=SIZE, height=SIZE, epsilon=0.01,
+    cfg = ft.RenderConfig(width=size, height=size, epsilon=0.01,
                           length=30.0, march=mcfg)
 
     render = jax.jit(
@@ -153,7 +148,7 @@ def main():
     kparams = jax.lax.stop_gradient(scene.prim_params["torus"])
 
     def prep(s, r):
-        tile = ray_tile()
+        tile = RAY_TILE
         grid = r.origin.shape[0] // tile
         t0_, miss0, t_exit = bound_skip_start(s, r)
         length = jnp.minimum(r.length, t_exit)
@@ -185,21 +180,23 @@ def main():
     prep_ms = (time.perf_counter() - t0) / 16 * 1e3
     log(f"prep {prep_ms:.2f} ms")
 
-    print(json.dumps({
+    return {
         "tori10k_rays_per_sec": n_rays / best,
         "tori10k_fwd_time_s": best,
         "tori10k_n_rays": n_rays,
-        "tori10k_n_tori": TORI,
-        "tori10k_image_size": SIZE,
+        "tori10k_n_tori": tori,
+        "tori10k_image_size": size,
         "tori10k_cull_m": m_prim,
         "tori10k_cull_m_shadow": m_sh,
         "tori10k_cand_max_primary": c_prim,
         "tori10k_cand_max_shadow": m_shadow,
         "tori10k_prep_ms_primary": round(prep_ms, 2),
         "tori10k_compile_s": round(compile_s, 1),
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from fraytracer_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    print(json.dumps(run(int(sys.argv[1]) if len(sys.argv) > 1 else 1024,
+                         int(sys.argv[2]) if len(sys.argv) > 2 else 10000)))
